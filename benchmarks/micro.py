@@ -7,7 +7,7 @@ overhead ≈ 0 vs the base case. Here the analogous contract is that a
 combinator applied under ``jit`` compiles to the same fused XLA program as
 the hand-written base case; the suite reports both so the tax is visible.
 
-Run: ``python benchmarks/micro.py [--device cpu|tpu]`` — prints one row per
+Run: ``python benchmarks/micro.py [--device cpu|gpu]`` — prints one row per
 entry (median of ``reps``).
 """
 import argparse
@@ -36,7 +36,7 @@ def timeit(label, fn, *args, reps=30):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--device", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--device", default="cpu", choices=["cpu", "gpu"])
     args = ap.parse_args()
     if args.device == "cpu":
         jax.config.update("jax_platforms", "cpu")

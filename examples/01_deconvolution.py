@@ -7,14 +7,8 @@ any vec bridge.
 
 Run: ``python examples/01_deconvolution.py``
 """
-import os
 
 import jax
-
-# honor JAX_PLATFORMS even when a platform plugin overrides it
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 
 import jets_tpu as jt

@@ -1,7 +1,7 @@
 """Example 2 — distributed multi-shot linearized seismic inversion.
 
 The flagship workload: shots stacked on a leading block axis, sharded over a
-device mesh, the adjoint accumulated with one ``psum`` over ICI, and the
+device mesh, the adjoint accumulated with one ``psum`` over the mesh, and the
 SAME jitted LSQR running unchanged on top.
 
 Single-machine demo on 8 virtual CPU devices:
@@ -9,14 +9,8 @@ Single-machine demo on 8 virtual CPU devices:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/02_distributed_seismic.py
 """
-import os
 
 import jax
-
-# honor JAX_PLATFORMS even when a platform plugin overrides it
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 
 from jets_tpu.models.seismic import make_seismic_problem

@@ -7,13 +7,9 @@ operator. This is the reference family's flagship nonlinear workflow
 
 Run: ``python examples/03_fwi_gauss_newton.py``
 """
-import os
 
 import jax
 
-# honor JAX_PLATFORMS even when a platform plugin overrides it
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 # FWI in physical units needs f64: squared gradient norms underflow f32
 jax.config.update("jax_enable_x64", True)
 

@@ -11,10 +11,6 @@ import os
 import tempfile
 
 import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 
 from jets_tpu.models.seismic import make_seismic_operator

@@ -9,12 +9,9 @@ optimization — Armijo line searches included — runs as ONE compiled
 
 Run: ``python examples/05_fwi_lbfgs.py``
 """
-import os
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

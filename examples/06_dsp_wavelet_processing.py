@@ -8,12 +8,9 @@ under jit; the chain passes the dot-product gate like any single operator.
 
 Run: ``python examples/06_dsp_wavelet_processing.py``
 """
-import os
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -9,13 +9,8 @@ gives a useful (L2) separation; full separation needs a sparsity solver on top o
 
 Run: ``python examples/07_deblending.py``
 """
-import os
 
 import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 import numpy as np
 

@@ -6,7 +6,7 @@ Puts the deepened wave pack together the way a seismic imaging shop would:
   contaminating the image),
 * 8th-order spatial stencil (coarser grid per wavelength),
 * an OFF-GRID receiver cable at fractional depth (Kaiser-windowed-sinc
-  extraction — Hicks interpolation running as banded MXU matmuls inside
+  extraction — Hicks interpolation running as banded matmuls inside
   the time loop),
 * Born modeling for synthetic data, LSQR for the linearized image
   (RTM = the first adjoint application; least-squares migration = the
@@ -14,14 +14,8 @@ Puts the deepened wave pack together the way a seismic imaging shop would:
 
 Run: ``python examples/08_rtm_imaging.py`` (CPU-friendly sizes).
 """
-import os
 
 import jax
-
-# honor JAX_PLATFORMS even when a platform plugin overrides it
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 
 import jets_tpu as jt

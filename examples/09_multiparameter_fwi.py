@@ -9,14 +9,8 @@ pytree unchanged.
 
 Run: ``python examples/09_multiparameter_fwi.py`` (CPU-friendly sizes).
 """
-import os
 
 import jax
-
-# honor JAX_PLATFORMS even when a platform plugin overrides it
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 
 from jets_tpu.ops.wave import vd_wave_propagator

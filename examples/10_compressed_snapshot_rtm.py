@@ -18,13 +18,8 @@ imaging-grade.
 
 Run: ``python examples/10_compressed_snapshot_rtm.py``
 """
-import os
 
 import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 import numpy as np
 

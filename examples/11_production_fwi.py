@@ -17,13 +17,8 @@ Three round-3 features together, the way a production inversion uses them:
 
 Run: ``python examples/11_production_fwi.py``
 """
-import os
 
 import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 
 from jets_tpu.solvers import lbfgs, least_squares_objective

@@ -4,10 +4,9 @@ BASELINE config-#5 workload shape, scaled down to run anywhere.
 Round-4 features together, the way a production RTM/FWI driver uses them:
 
 * ``multishot_wave_operator(store_adjoint="int8", shot_map="map")`` —
-  every shot's gradient is a STORED-wavefield adjoint sweep (forward and
-  reverse both ride the fused Pallas kernels on TPU), shots scan
-  sequentially per device so the fused kernels apply, and shot
-  contributions accumulate through the stacked psum — the reference
+  every shot's gradient is a STORED-wavefield adjoint sweep, shots scan
+  sequentially per device (one shot's wavefields in memory at a time),
+  and shot contributions accumulate through the stacked psum — the reference
   family's block-adjoint loop as one collective;
 * anisotropic gradients are first-class: the TTI propagator's
   ``store_adjoint=`` runs the hand-derived transpose of the rotated
@@ -19,13 +18,8 @@ Round-4 features together, the way a production RTM/FWI driver uses them:
 
 Run: ``python examples/12_multishot_imaging.py``
 """
-import os
 
 import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -44,7 +38,7 @@ def main():
         grid, srcs, nt=24, dt=6e-4, dx=10.0, freq=16.0, rcv_idx=rcv,
         sponge_width=3,
         store_adjoint="int8",    # per-shot stored int8 adjoint sweeps
-        shot_map="map",          # sequential shots -> fused kernels on TPU
+        shot_map="map",          # shots one after another per device
         dtype=jnp.float32,
     )
     c_true = jnp.full(grid, 1500.0, jnp.float32).at[10:, :, :].set(1560.0)

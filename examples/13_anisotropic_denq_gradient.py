@@ -5,10 +5,9 @@ Three gradient paths a production imaging shop runs daily, all through
 the SAME jet/solver machinery:
 
 * **VTI FWI gradient** from the stored two-field history
-  (``vti_wave_propagator(store_adjoint="int8")``) — on TPU the reverse
-  sweep rides the fused five-DMA-ring Pallas kernel (256³: 3130 µs per
-  time step, 2.8× over autodiff-remat; on CPU the same math runs the
-  XLA sweep);
+  (``vti_wave_propagator(store_adjoint="int8")``) — the hand-derived
+  transposed sweep reads the int8 history instead of recomputing the
+  forward;
 * **IsoDenQ gradient** — velocity, buoyancy AND attenuation
   (``vdq_wave_propagator``, the Prop*AcoIsoDenQ parameter set) with the
   hand-derived Kosloff-friction transpose: one reverse pass returns the
@@ -18,13 +17,8 @@ the SAME jet/solver machinery:
 
 Run: ``python examples/13_anisotropic_denq_gradient.py``
 """
-import os
 
 import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 
 from jets_tpu.ops.wave import vdq_wave_propagator, vti_wave_propagator

@@ -1,7 +1,7 @@
-"""jets_tpu — a TPU-native, matrix-free operator-and-solver framework.
+"""jets_tpu — a matrix-free operator-and-solver framework.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of
-ChevronETC/Jets.jl (reference mounted read-only at ``/root/reference``):
+A from-scratch JAX/XLA re-design with the capabilities of
+ChevronETC/Jets.jl:
 
 * **L0 spaces** (``core.spaces``, ``core.blockspace``) — dense, symmetric
   (rfft), and block vector spaces with space-owned inner products;
@@ -13,10 +13,10 @@ ChevronETC/Jets.jl (reference mounted read-only at ``/root/reference``):
 * **L3 verification** (``core.verify``) — dot-product / linearity /
   linearization gates, dense materialization;
 * **ops** — diagonal, matrix, convolution/derivative, FFT (symmetric space),
-  Pallas stencil kernels;
+  stencils and the wave-equation propagators;
 * **solvers** — CG / CGLS / LSQR as ``lax.while_loop`` XLA programs;
 * **parallel** — mesh-sharded block operators with ``psum`` adjoint
-  accumulation over ICI.
+  accumulation over the device mesh.
 """
 from .core.spaces import (
     Space,

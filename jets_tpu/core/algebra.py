@@ -1,6 +1,6 @@
 """Operator algebra — L2: composition, sums, scalar scaling, vec.
 
-TPU-native re-design of the reference's combinators (Jets.jl composite
+JAX re-design of the reference's combinators (Jets.jl composite
 ``src/Jets.jl:518-623``, sum ``:625-731``, scalar ``:1156-1164``, vec
 ``:1126-1154``). The reference's defining trick is kept: **a combinator is not
 a new class — it is just another jet** whose kernels are module-level

@@ -2,7 +2,7 @@
 
 A *jet* is a function together with a linearization point: forward map ``f``,
 tangent map ``df`` (the Jacobian action at ``m0``), and adjoint tangent map
-``dft``. This is the TPU-native re-design of the reference's core record
+``dft``. This is the JAX re-design of the reference's core record
 (Jets.jl ``Jet``, ``src/Jets.jl:131-301``) and operator wrappers
 (``JopNl``/``JopLn``/``JopAdjoint``, ``src/Jets.jl:194-403``).
 
@@ -18,7 +18,7 @@ Design deltas from the reference, deliberate and documented:
   Here a missing ``dft`` is *derived from ``df`` via ``jax.linear_transpose``*
   — correct by construction, including the complex case (conjugation wrap).
   Pass ``dft="self"`` for the reference's self-adjoint default, or a callable
-  to override with a faster hand-written/Pallas adjoint (validated by the
+  to override with a faster hand-written adjoint (validated by the
   dot-product gate, ``verify.py``).
 * **Operators are pytrees.** Arrays in ``m0``/``state`` are leaves; spaces and
   kernel functions are static aux data. Operators therefore pass through

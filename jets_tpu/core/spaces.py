@@ -1,6 +1,6 @@
 """Vector spaces — the L0 layer of the framework.
 
-TPU-native re-design of the reference's space protocol (Jets.jl
+JAX re-design of the reference's space protocol (Jets.jl
 ``JetAbstractSpace`` / ``JetSpace``, ``src/Jets.jl:5-129``): a *space* is a
 static description ``(shape, dtype)`` of where model/data vectors live. Spaces
 are immutable, hashable, and act as pytree *aux data*, so operators carrying
@@ -166,7 +166,7 @@ class Space:
 class SymmetricSpace(Space):
     """Space with Hermitian symmetry along one axis — rfft ranges.
 
-    TPU-native counterpart of the reference ``JetSSpace``/``SymmetricArray``
+    JAX counterpart of the reference ``JetSSpace``/``SymmetricArray``
     (``src/Jets.jl:406-516``). The reference stores only the non-redundant
     half of a complex array whose full version is Hermitian-symmetric, and
     *doubles the reflected half in norms/dots* (pinned by

@@ -8,30 +8,24 @@ Per-shot physics (linearized Born-style modeling, kept linear):
 
     d_b = R_b [ w_b ⊙ (L m) ] = w_b[rcv_b] * (L m)[rcv_b]
 
-Architecture (performance-driven; every claim measured on TPU v5e, see the
-inline notes and ``docs/index.md`` §7):
+Architecture:
 
 * per-shot weights live **at receiver points only** (``wr``, (nshots,
   nrecv)) — the full per-shot weight grids never exist, so per-shot work is
   O(nrecv), not O(grid);
 * receivers form a **regular interior subgrid** (constant-spacing
-  acquisition). This is the performance keystone: flat gathers/scatters
-  serialize on TPU (~7 ns/element — a 4096-point gather costs ~28 µs, more
-  than a whole 2048² stencil sweep), whereas a separable subgrid is sampled
-  by per-axis ``take``s, major axis first, where the one big transfer moves
-  whole minor-axis tiles as plain DMA;
+  acquisition), sampled by per-axis ``take``s, major axis first, where the
+  one big gather moves whole contiguous minor-axis rows instead of single
+  elements;
 * the default ``impl="fused"`` goes further: the forward samples the
   Laplacian *stencil taps directly* on a 3-block-per-axis gathered
-  sub-array (``_make_sampled_stencil_df``) — grid HBM traffic is ~3·c0
-  rows read, no dense sweep at all; the adjoint deposits per-axis then runs
-  ONE dense Laplacian sweep, whose elementwise tail XLA fuses into the
-  solver's following axpy/norm (a scatter tail would not fuse; measured
-  15.0k vs 12.9k LSQR iter/s);
+  sub-array (``_make_sampled_stencil_df``) — grid traffic is ~3·c0 rows
+  read, no dense sweep at all; the adjoint deposits per-axis then runs ONE
+  dense Laplacian sweep, whose elementwise tail XLA can fuse into the
+  solver's following axpy/norm (a scatter tail would not fuse);
 * shots shard over the mesh ``"block"`` axis; the model is replicated; the
-  adjoint accumulation is a single ``psum`` over ICI;
-* measured headline (2048² f32 grid, 64 shots, 4096 receivers, 1×v5e):
-  matvec pair 32 µs, 18.6k LSQR iterations/s — 2.46x the first recorded
-  baseline (gather/scatter + dense-sweep composition at 7.5k).
+  adjoint accumulation is a single ``psum`` of the (nrecv,) receiver sums
+  over the mesh, lifted into the model grid once, after it.
 """
 from __future__ import annotations
 
@@ -57,21 +51,26 @@ def _sample_df(u, m0, bs):
     return jnp.ravel(u)[bs["rcv"]] * bs["wr"]
 
 
-def _make_sample_stack_dft(grid_shape):
+def _reduce_shots(dd, m0, bs):
+    """Whole-stack adjoint, first half: the weighted residuals reduced over
+    the local shots, (nshots, nrecv) → (nrecv,) — the block-accumulation
+    loop of the reference (src/Jets.jl:1034-1057) as one reduction. The
+    cross-shard ``psum`` acts on this receiver-sized array; the lift into
+    the model grid (a ``dft_tail``) runs once, after it."""
+    return jnp.sum(dd * bs["wr"], axis=0)
+
+
+def _make_sample_tail(grid_shape):
     size = 1
     for s in grid_shape:
         size *= int(s)
 
-    def stack_dft(dd, m0, bs):
-        """Whole-stack adjoint: reduce the weighted residuals over the local
-        shots — (nshots, nrecv) → (nrecv,) — then ONE scatter-add into the
-        wavefield grid (the block-accumulation loop of the reference,
-        src/Jets.jl:1034-1057, as a reduction + a single XLA scatter)."""
-        g = jnp.sum(dd * bs["wr"], axis=0)  # (nrecv,)
-        z = jnp.zeros((size,), dd.dtype)
-        return z.at[bs["rcv"]].add(g).reshape(grid_shape)
+    def tail(g, sst):
+        """ONE scatter-add of the receiver sums into the wavefield grid."""
+        z = jnp.zeros((size,), g.dtype)
+        return z.at[sst["rcv"]].add(g).reshape(grid_shape)
 
-    return stack_dft
+    return tail
 
 
 def _laplacian_stamps(grid_shape, rcv, dtype):
@@ -120,10 +119,10 @@ def _receiver_grid(grid_shape, nreceivers):
     every stencil tap of every receiver stays in bounds.
 
     Regular receiver geometry is both the realistic acquisition (constant
-    receiver spacing) and the TPU-performance key: a separable subgrid can
-    be sampled by per-axis gathers (major axis first — whole minor-axis
-    tiles move as plain DMA; see :func:`_axis_sample`), avoiding the flat
-    gather/scatter pipeline that serializes on TPU (~7 ns/element measured).
+    receiver spacing) and the performance key: a separable subgrid can be
+    sampled by per-axis gathers (major axis first — whole minor-axis rows
+    move together; see :func:`_axis_sample`) instead of a flat
+    element-by-element gather/scatter.
 
     Returns ``(starts, strides, counts)`` or ``None`` if the grid can't
     hold ``nreceivers`` with margins.
@@ -165,11 +164,9 @@ from ..ops.stencil import laplacian_nd as _lap  # noqa: E402
 
 def _axis_sample(u, axes_idx):
     """Sample ``u`` on the receiver subgrid by successive per-axis gathers,
-    MAJOR axis first: the big gather moves whole minor-axis tiles (plain
-    DMA, no lane relayout), every later gather acts on an already-small
-    array. Bit-exact, and ~2.5x faster than the flat gather/scatter pipeline
-    at (2048², 4096 rcv) on TPU v5e (strided slicing along the lane dim and
-    one-hot matmuls at required precision both measured slower)."""
+    MAJOR axis first: the big gather moves whole contiguous minor-axis rows,
+    every later gather acts on an already-small array. Bit-exact against
+    the flat gather."""
     g = u
     for ax, idx in enumerate(axes_idx):
         g = jnp.take(g, idx, axis=ax)
@@ -195,67 +192,38 @@ def _make_axis_sample_df(axes_idx):
     return df
 
 
-def _make_axis_sample_stack_dft(grid_shape, counts, axes_idx, with_lap):
-    def stack_dft(dd, m0, bs):
-        g = jnp.reshape(jnp.sum(dd * bs["wr"], axis=0), counts)
-        z = _axis_deposit(g, grid_shape, axes_idx)
+def _make_axis_deposit_tail(grid_shape, counts, axes_idx, with_lap):
+    """Lift of the receiver sums: per-axis deposit onto the grid, then (the
+    fused operator) the dense Laplacian sweep.
+
+    Running it after the cross-shard ``psum`` keeps the adjoint exactly in
+    the range of ``L Pᵀ``: receivers are ≥2 cells apart, so each output of
+    ``L`` is one deposited value times -2·nd or 1, exact in floating
+    point. Summing per-shard Laplacians instead lets the collective round
+    the centre and the arms of a stamp differently (its summation order
+    may vary across the array), and LSQR amplifies that off-range rounding
+    geometrically once it has converged."""
+    def tail(g, sst):
+        z = _axis_deposit(jnp.reshape(g, counts), grid_shape, axes_idx)
         return _lap(z) if with_lap else z
 
-    return stack_dft
-
-
-def _make_adjoint_axpy_norm_hook(grid_shape, counts, axes_idx, dom):
-    """Solver epilogue hook (see ``solvers/krylov._adjoint_axpy_norm``):
-    ``v_hat = A^H dd + s·v`` with ``‖v_hat‖`` in the same pass.
-
-    On TPU/f32 the dense tail (deposit → Laplacian sweep → solver axpy →
-    norm) runs as the single slab-pipelined Pallas pass of
-    ``ops/pallas_solver.lap3d_axpy_norm2`` (3 HBM touches, stencil add
-    order bit-exact vs ``laplacian_nd``); elsewhere the same math runs as
-    plain XLA ops, identical to the solver's generic path.
-
-    OPT-IN (``make_seismic_operator(..., epilogue_hook=True)``), not the
-    default: standalone the kernel beats the XLA chain 3.1× (301 vs
-    936 µs on 256³), but INSIDE the real LSQR while-loop body XLA already
-    fuses this segment well and the kernel's materialization boundaries
-    cost more than they save — measured 0.911 (hooked) vs 0.783 ms/iter
-    (unhooked, with the Pallas x/w update) on 256³/v5e. Kept for regimes
-    where the body is compiled less favorably."""
-
-    def hook(dd, v, s, state):
-        bstate = state["bstate"]
-        g = jnp.reshape(jnp.sum(dd * bstate["wr"], axis=0), counts)
-        z = _axis_deposit(g, grid_shape, axes_idx)
-        if (
-            jax.default_backend() == "tpu"
-            and z.dtype == jnp.float32
-            and len(grid_shape) == 3
-            and grid_shape[-1] % 128 == 0
-        ):
-            from ..ops.pallas_solver import lap3d_axpy_norm2
-
-            vh, n2 = lap3d_axpy_norm2(z, v, s)
-            return vh, jnp.sqrt(n2)
-        vh = _lap(z) + s * v
-        return vh, dom.norm(vh)
-
-    return hook
+    return tail
 
 
 def _make_sampled_stencil_df(grid_shape, counts, axes_idx):
     """Sweep-free flagship FORWARD kernel: ``(L m)[subgrid]`` without any
     dense O(grid) sweep. Per axis, gather the 3-block index set
-    ``[idx-1, idx, idx+1]`` (one cheap whole-tile DMA on the major axis,
+    ``[idx-1, idx, idx+1]`` (one whole-row gather on the major axis,
     tiny gathers after), then combine the 2·nd+1 stencil taps on the small
     ``(3c0, 3c1, …)`` array — in the SAME add order as ``_lap`` so results
-    are bit-identical to the composed operator. Model-grid HBM traffic per
+    are bit-identical to the composed operator. Model-grid traffic per
     forward: ~3·c0 rows read, nothing else.
 
     The matching ADJOINT is deliberately NOT the tap-transposed scatter
-    (that form measured slower inside the solver loop — a scatter tail
-    cannot fuse into the solver's next axpy/norm): the fused operator pairs
-    this forward with ``_make_axis_sample_stack_dft(with_lap=True)``, the
-    same linear transpose expressed as deposit-then-dense-sweep.
+    (a scatter tail cannot fuse into the solver's next axpy/norm): the
+    fused operator pairs this forward with
+    ``_make_axis_deposit_tail(with_lap=True)``, the same linear transpose
+    expressed as deposit-then-dense-sweep.
 
     Subgrid margins of ≥1 cell (guaranteed by :func:`_receiver_grid`) keep
     every ``idx±1`` in bounds."""
@@ -285,24 +253,22 @@ def _make_sampled_stencil_df(grid_shape, counts, axes_idx):
 
     return df
 
-def _make_stamp_stack_dft(grid_shape):
+def _make_stamp_tail(grid_shape):
     size = 1
     for s in grid_shape:
         size *= int(s)
 
-    def stack_dft(dd, m0, bs):
-        """Fused whole-stack adjoint ``L^T S^T dd``: reduce the weighted
-        residuals over local shots, then ONE scatter-add of the stencil
-        stamps — never materializes the dense sampled field, so the only
-        O(grid) cost is writing the output model."""
-        g = jnp.sum(dd * bs["wr"], axis=0)  # (nrecv,)
-        vals = bs["scoef"] * g[None, :]  # (nstamp, nrecv)
-        z = jnp.zeros((size,), dd.dtype)
-        return z.at[jnp.ravel(bs["sidx"])].add(jnp.ravel(vals)).reshape(
+    def tail(g, sst):
+        """Fused adjoint lift ``L^T`` of the receiver sums: ONE scatter-add
+        of the stencil stamps — never materializes the dense sampled field,
+        so the only O(grid) cost is writing the output model."""
+        vals = sst["scoef"] * g[None, :]  # (nstamp, nrecv)
+        z = jnp.zeros((size,), g.dtype)
+        return z.at[jnp.ravel(sst["sidx"])].add(jnp.ravel(vals)).reshape(
             grid_shape
         )
 
-    return stack_dft
+    return tail
 
 
 def make_seismic_operator(
@@ -315,22 +281,17 @@ def make_seismic_operator(
     axis: str = "block",
     dtype=jnp.float32,
     impl: str = "fused",
-    epilogue_hook: bool = False,
 ) -> Operator:
     """Build the multi-shot linearized modeling operator ``A = S ∘ L``.
 
-    ``epilogue_hook=True`` (3-D fused, single-chip only) additionally
-    installs the solver adjoint-epilogue hook
-    (:func:`_make_adjoint_axpy_norm_hook`) — opt-in; measured slower than
-    the default inside the LSQR body on v5e.
-
     Model space: ``grid_shape`` (2-D or 3-D). Range: ``(nshots, nreceivers)``.
     Per-shot state (stacked, sharded over the mesh block axis when given):
-    receiver flat indices ``rcv`` and receiver-point weights ``wr``.
+    receiver-point weights ``wr``; the receiver flat indices ``rcv`` are
+    shared state (``op.jet.state["sstate"]["rcv"]`` with ``impl="fused"``).
 
     Receiver geometry is a FIXED regular interior subgrid shared by all
     shots (standard constant-spacing acquisition; see
-    :func:`_receiver_grid` for why this is also the TPU-fast layout). When
+    :func:`_receiver_grid` for why this is also the fast layout). When
     ``nreceivers`` can't be laid out as a subgrid with margins, a strided
     line with random jitter is used instead.
 
@@ -394,45 +355,30 @@ def make_seismic_operator(
             # Forward: sweep-free sampled stencil (reads ~3·c0 rows of the
             # grid, nothing else). Adjoint: per-axis deposit then the dense
             # Laplacian sweep — the same linear transpose, but ending in a
-            # stencil whose output FUSES into the solver's following
-            # axpy/norm (a scatter tail does not; measured 15.0k vs 12.9k
-            # LSQR iter/s inside the jitted loop).
-            fdf = _make_sampled_stencil_df(
-                grid_shape, counts, axes_idx
-            )
-            op = stacked_block_operator(
+            # stencil whose output can fuse into the solver's following
+            # axpy/norm (a scatter tail does not).
+            return stacked_block_operator(
                 nblocks=nshots,
                 dom=dom,
                 rng_block=Space((nreceivers,), dtype),
                 bstate={"wr": wr},
-                df=fdf,
-                stack_dft=_make_axis_sample_stack_dft(
+                sstate={"rcv": rcv},
+                df=_make_sampled_stencil_df(grid_shape, counts, axes_idx),
+                stack_dft=_reduce_shots,
+                dft_tail=_make_axis_deposit_tail(
                     grid_shape, counts, axes_idx, with_lap=True
                 ),
                 mesh=mesh,
                 axis=axis,
             )
-            if epilogue_hook and mesh is None and len(grid_shape) == 3:
-                # advertise the fused adjoint-tail epilogue to the solvers
-                # (single-chip 3-D path; the sharded adjoint keeps its psum
-                # structure). Static state key -> no pytree change. Opt-in:
-                # see _make_adjoint_axpy_norm_hook for the measurements.
-                from ..core.jet import with_state
-
-                op = with_state(
-                    op,
-                    adjoint_axpy_norm=_make_adjoint_axpy_norm_hook(
-                        grid_shape, counts, axes_idx, dom
-                    ),
-                )
-            return op
         S = stacked_block_operator(
             nblocks=nshots,
             dom=dom,
             rng_block=Space((nreceivers,), dtype),
             bstate={"wr": wr},
             df=_make_axis_sample_df(axes_idx),
-            stack_dft=_make_axis_sample_stack_dft(
+            stack_dft=_reduce_shots,
+            dft_tail=_make_axis_deposit_tail(
                 grid_shape, counts, axes_idx, with_lap=False
             ),
             mesh=mesh,
@@ -448,9 +394,10 @@ def make_seismic_operator(
             dom=dom,
             rng_block=Space((nreceivers,), dtype),
             bstate={"wr": wr},
-            sstate={"sidx": sidx, "scoef": scoef},
+            sstate={"sidx": sidx, "scoef": scoef, "rcv": rcv},
             df=_stamp_df,
-            stack_dft=_make_stamp_stack_dft(grid_shape),
+            stack_dft=_reduce_shots,
+            dft_tail=_make_stamp_tail(grid_shape),
             mesh=mesh,
             axis=axis,
         )
@@ -462,7 +409,8 @@ def make_seismic_operator(
         bstate={"wr": wr},
         sstate={"rcv": rcv},
         df=_sample_df,
-        stack_dft=_make_sample_stack_dft(grid_shape),
+        stack_dft=_reduce_shots,
+        dft_tail=_make_sample_tail(grid_shape),
         mesh=mesh,
         axis=axis,
     )
@@ -479,7 +427,6 @@ def make_seismic_problem(
     noise: float = 0.0,
     dtype=jnp.float32,
     impl: str = "fused",
-    epilogue_hook: bool = False,
 ) -> Tuple[Operator, jax.Array, jax.Array]:
     """Operator + ground-truth reflectivity model + observed data.
 
@@ -491,7 +438,7 @@ def make_seismic_problem(
     k_op, k_m, k_n = jax.random.split(key, 3)
     A = make_seismic_operator(
         grid_shape, nshots, nreceivers, k_op, mesh=mesh, dtype=dtype,
-        impl=impl, epilogue_hook=epilogue_hook,
+        impl=impl,
     )
     # sparse spike reflectivity over a weak smooth background (the background
     # keeps the data nonzero even when few receivers neighbor a spike)

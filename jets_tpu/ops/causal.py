@@ -2,7 +2,7 @@
 (``JopLeakyIntegration``/``JopNim`` and the difference op named with the
 companion packs in ``/root/reference/docs/src/index.md:14-19``).
 
-TPU design: causal recurrences are first-order linear scans, so the forward
+Design: causal recurrences are first-order linear scans, so the forward
 is a single ``lax.associative_scan`` — a log-depth parallel scan that XLA
 maps onto the VPU, not a serial time loop. The adjoint of a causal
 integration is the ANTICAUSAL integration (matrix transpose of the lower-

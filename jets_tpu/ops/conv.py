@@ -2,7 +2,7 @@
 ``A = D ∘ S`` of BASELINE config #2 (companion-pack ops in the reference
 family, named in ``docs/src/index.md:14-19``).
 
-Forwards are XLA convolutions (MXU/VPU-friendly, statically shaped); adjoints
+Forwards are XLA convolutions (statically shaped); adjoints
 are *derived* via ``jax.linear_transpose`` — XLA transposes a convolution into
 another convolution, so the derived adjoint is as fast as a hand-written one
 and exact by construction (then certified by the dot-product gate in CI).

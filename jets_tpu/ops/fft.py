@@ -1,6 +1,6 @@
 """FFT operators — exercising the symmetric (rfft) space.
 
-TPU-native counterpart of the reference family's ``JopFft`` (JetPackTransforms,
+JAX counterpart of the reference family's ``JopFft`` (JetPackTransforms,
 ``docs/src/index.md:14-19``); the rfft range is a :class:`SymmetricSpace`
 whose weighted inner product reproduces the reference's doubled-norm
 semantics for the stored half-spectrum (``src/Jets.jl:406-516``,

@@ -2,7 +2,7 @@
 named in ``/root/reference/docs/src/index.md:14-19``): sample a gridded
 signal at fractional positions along one axis.
 
-TPU design: the forward is two per-axis ``take``s blended by the fractional
+Design: the forward is two per-axis ``take``s blended by the fractional
 weights (measured on this hardware: per-axis takes beat gather stamps and
 one-hot matmuls — see repo notes). The adjoint is the weighted scatter-add
 (``.at[].add``), which XLA lowers to a sorted segment sum.

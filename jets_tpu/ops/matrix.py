@@ -2,7 +2,7 @@
 ``_matmul_df!/_matmul_df′!`` auto-wrap at ``:573-576,691-708``).
 
 Plain 2-D arrays participate in the operator algebra by being wrapped into a
-linear operator whose forward is a matvec on the MXU. The matrix is a pytree
+linear operator whose forward is a matvec (a matrix-unit product). The matrix is a pytree
 leaf in the jet's state, so a jitted solver sees it as a traced argument (no
 per-instance recompilation).
 """

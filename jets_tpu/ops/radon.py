@@ -2,9 +2,9 @@
 
 The ``JopSlantStack`` capability of the reference's companion transforms
 package (``JetPackTransforms``, named in
-``/root/reference/docs/src/index.md:14-19``), built TPU-first: the
+``/root/reference/docs/src/index.md:14-19``), built for XLA: the
 time-shift stack is evaluated in the temporal Fourier domain, where it is a
-per-frequency complex matmul against a phase matrix — MXU work with static
+per-frequency complex matmul against a phase matrix — matmul work with static
 shapes, no gathers or interpolation.
 
 Forward (slowness model → shot gather):

@@ -3,14 +3,13 @@ JetPackWaveFD source/receiver interpolation scheme (Hicks 2002) of the
 reference family (``docs/src/index.md:14-19``; nothing in the reference repo
 itself, ``src/Jets.jl`` has no interpolation).
 
-TPU-first design: **interpolation is dense banded matrices applied on the
-MXU**, not gathers. A flat gather serializes at ~7 ns/element on TPU (see
-CLAUDE.md measurement rules) while a small dense matmul runs at MXU speed,
-so each axis's fractional sampling becomes a ``(npts_ax, n_ax)`` matrix
+Design: **interpolation is dense banded matrices applied as matmuls**, not
+gathers — a flat gather moves one element at a time while a small dense
+matmul runs on the matrix units, so each axis's fractional sampling becomes a ``(npts_ax, n_ax)`` matrix
 built once at operator-construction time (numpy, float64, then cast).
 Separable (tensor-product) sampling contracts one axis at a time; scattered
 points contract per-point rows. Adjoints are derived via
-``linear_transpose`` — transposed matmuls, also MXU.
+``linear_transpose`` — transposed matmuls.
 
 Weights: ``w(x) = sinc(x) · I0(β √(1-(x/r)²)) / I0(β)`` over the ``2r`` taps
 around each fractional coordinate (Hicks' optimal β≈6.31 for r=4); taps
@@ -82,7 +81,7 @@ def sinc_sampling_operator(
 ) -> LinearOperator:
     """Separable (tensor-product) off-grid resampling: axis ``k`` of the
     output grid lives at fractional coordinates ``coords_per_axis[k]`` of
-    the input axis. Forward = one banded MXU matmul per axis; adjoint is
+    the input axis. Forward = one banded matmul per axis; adjoint is
     the derived transposed-matmul chain. Use for model regridding, receiver
     lines/planes, and any JetPackWaveFD-style geometry with a separable
     layout."""
@@ -111,7 +110,7 @@ def sinc_point_sampling_operator(
 ) -> LinearOperator:
     """Scattered off-grid point sampling: ``points`` is ``(npts, ndim)``
     fractional coordinates; the output is the ``(npts,)`` vector of sampled
-    values. Implemented as per-point row contractions (one MXU matmul for
+    values. Implemented as per-point row contractions (one matmul for
     the leading axis, then row-wise weighted reductions) — no gathers. For
     large grids this does ``npts · n_0 · Π n_rest`` MACs; meant for
     operator-level sampling (acquisition geometry, QC), not per-time-step
@@ -129,7 +128,7 @@ def sinc_point_sampling_operator(
 
     def _df(dm, m0, state):
         Ws = state["Ws"]
-        # contract axis 0 with per-point rows: t[p, rest...] — an MXU matmul
+        # contract axis 0 with per-point rows: t[p, rest...] — a matmul
         t = jnp.tensordot(Ws[0], dm, axes=((1,), (0,)))
         # remaining axes: per-point weighted reductions (einsum keeps the
         # point axis aligned; XLA lowers these to batched matmuls)

@@ -3,20 +3,15 @@
 family, ``docs/src/index.md:14-19``).
 
 The generic path lowers to ``lax.conv_general_dilated`` with SAME padding —
-XLA maps these onto the TPU convolution path and *transposes them into
+XLA maps these onto its convolution path and *transposes them into
 convolutions* for the derived adjoint, so both directions run at conv speed.
-The fused 3-D Pallas kernels live in ``pallas_solver.py``; the hand-written
-2-D stencil kernel was RETIRED in r5 after three rounds at parity-at-best
-with the XLA HBM bound (21 vs 19 µs on a 2048² f32 grid): in the 2-D
-VMEM-resident regime XLA already emits a single fused pass, so a manual
-DMA pipeline has nothing left to save (docs §7 records the lesson) —
-``impl="pallas"`` on 2-D grids therefore routes to the XLA path.
+The Laplacian is a shift-and-add of zero-padded slices, which XLA fuses
+into one elementwise pass.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -92,9 +87,9 @@ _D2_COEFFS = {
 
 
 def laplacian_nd(x, order: int = 2):
-    """n-D Laplacian via shifted slices of a zero-padded array — pure VPU
-    adds, measurably faster on TPU than a 1-channel XLA convolution, and
-    exactly symmetric with the zero boundary (self-adjoint). THE single
+    """n-D Laplacian via shifted slices of a zero-padded array — pure
+    elementwise adds that fuse into their consumer, and exactly symmetric
+    with the zero boundary (self-adjoint). THE single
     shared implementation: the wave propagator and the fused seismic
     flagship import this so their bit-exactness guarantees hold.
 
@@ -122,9 +117,8 @@ def laplacian_nd(x, order: int = 2):
                 for i in range(nd)
             )
             if c == 1.0:
-                # keep the original two-add association: the Pallas
-                # kernels' bit-exactness gates reproduce this exact
-                # floating-point summation order
+                # keep the original two-add association (the flagship's
+                # fused/composed bit-exactness depends on it)
                 out = out + xp[lo] + xp[hi]
             else:
                 out = out + c * (xp[lo] + xp[hi])
@@ -146,45 +140,18 @@ def _laplacian8_df(dm, m0, state):
 _LAPLACIAN_DF = {2: _laplacian_df, 4: _laplacian4_df, 8: _laplacian8_df}
 
 
-def _laplacian_pallas_df(dm, m0, state):
-    from .pallas_solver import laplacian3d
-
-    return laplacian3d(dm, interpret=state["interpret"])
-
-
 def laplacian_operator(
-    shape: Sequence[int], dtype=jnp.float32, *, impl: str = "xla",
-    order: int = 2,
+    shape: Sequence[int], dtype=jnp.float32, *, order: int = 2,
 ) -> LinearOperator:
     """Second-order n-D Laplacian stencil — the seismic-style wave-operator
     building block of BASELINE config #5. Self-adjoint (symmetric stencil,
     zero boundary).
 
-    ``impl="xla"`` (default): shift-and-add slices — measured at the HBM
-    bandwidth bound on TPU v5e (19 µs for a 2048² f32 grid).
-    ``impl="pallas"``: the hand-written 3-D slab-pipelined DMA ring
-    (``pallas_solver.laplacian3d``, bit-exact; its axpy/norm-fused sibling
-    ``lap3d_axpy_norm2`` is the solver epilogue that beats the XLA chain
-    3.1× on 256³; interpret mode on CPU). On 2-D grids ``impl="pallas"``
-    routes to the XLA path: the hand-written 2-D kernel measured
-    parity-at-best for three rounds (VMEM-resident regime — XLA already
-    fuses the whole pass) and was retired in r5 (docs §7).
+    ``order`` ∈ {2, 4, 8} selects the stencil accuracy
+    (:func:`laplacian_nd`).
     """
     sp = Space(shape, dtype)
     if order not in _D2_COEFFS:
         raise ValueError(f"order must be one of {sorted(_D2_COEFFS)}")
-    if impl == "pallas" and len(shape) == 2:
-        impl = "xla"   # retired 2-D kernel: XLA is the measured bound
-    if impl == "pallas":
-        if len(shape) != 3 or jnp.dtype(dtype) != jnp.float32:
-            raise ValueError(
-                "pallas laplacian supports 3-D float32 grids"
-            )
-        if order != 2:
-            raise ValueError("pallas laplacian implements order=2 only")
-        interpret = jax.default_backend() == "cpu"
-        j = Jet(dom=sp, rng=sp, df=_laplacian_pallas_df, dft="self",
-                state={"interpret": interpret})
-    else:
-        j = Jet(dom=sp, rng=sp, df=_LAPLACIAN_DF[order], dft="self")
+    j = Jet(dom=sp, rng=sp, df=_LAPLACIAN_DF[order], dft="self")
     return LinearOperator(j)

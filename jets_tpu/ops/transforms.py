@@ -294,7 +294,7 @@ def projection_operator(vectors, complement: bool = False) -> LinearOperator:
     """Orthogonal projection onto ``span(vectors)`` (JetPack's
     ``JopProjection``): ``P = Q Q^H`` after a host-side QR orthonormalization
     of the ``(k, *shape)`` stack. ``complement=True`` gives ``I - P``.
-    Idempotent and self-adjoint; the apply is two small matmuls (MXU work),
+    Idempotent and self-adjoint; the apply is two small matmuls,
     never materializing the n×n projector."""
     V = jnp.asarray(vectors)
     if V.ndim < 2:

@@ -1,7 +1,7 @@
 """Acoustic wave-equation operators — the JetPackWaveFD equivalent of the
 reference family (``docs/src/index.md:14-19`` names JetPackWaveFD as the
 wave-equation FD operator pack; none of it lives in the reference repo, so
-this is a from-scratch TPU-native design).
+this is a from-scratch JAX design).
 
 Physics: constant-density acoustic wave equation, 2nd-order in time,
 2nd-order in space,
@@ -10,7 +10,7 @@ Physics: constant-density acoustic wave equation, 2nd-order in time,
 
 time-stepped by an explicit leapfrog scheme inside ``lax.scan`` (static trip
 count → one compiled XLA loop; the 2-D/3-D Laplacian is the shift-and-add
-stencil, pure VPU). Absorbing boundaries via a sponge taper.
+stencil, pure elementwise work). Absorbing boundaries via a sponge taper.
 
 Operators:
 
@@ -96,13 +96,12 @@ def _sponge_factors(shape, width: int, strength: float = 0.015,
                     free_surface: bool = False):
     """The per-axis 1-D factors of :func:`_sponge` (broadcastable shapes),
     left UNFUSED so the time step can recompute their product in-register
-    instead of reading a full-grid sponge array from HBM. In the 3-D
-    HBM-bound regime this removes one grid touch per step (measured on TPU
-    v5e, 256³ f32: the full-grid sponge read costs ~14% of the step; see
-    docs §7). In float32 the factor product ``(d0·d1)·d2`` is bit-identical
-    to the stored full-grid sponge (same multiplication tree); in float64
-    the factors are upcast before the product (the stored sponge was
-    computed in f32), so equality is to roundoff there."""
+    instead of reading a full-grid sponge array from device memory: one
+    grid touch fewer per step on a memory-bound 3-D grid. In float32 the
+    factor product ``(d0·d1)·d2`` is bit-identical to the stored full-grid
+    sponge (same multiplication tree); in float64 the factors are upcast
+    before the product (the stored sponge was computed in f32), so
+    equality is to roundoff there."""
     factors = []
     for ax, n in enumerate(shape):
         x = jnp.arange(n)
@@ -124,10 +123,8 @@ def _sponge_factors(shape, width: int, strength: float = 0.015,
 def _make_sponge(shape, width: int, strength: float = 0.015,
                  free_surface: bool = False, dtype=jnp.float32):
     """Sponge in the representation the step should use: a full-grid array
-    for 1-/2-D grids (VMEM-resident regime — measured FASTER than the
-    factor product there: the extra in-register multiplies cost more than
-    the free VMEM read), a tuple of per-axis factors for 3-D+ grids
-    (HBM-bound regime — one fewer full-grid read per step)."""
+    for 1-/2-D grids (small enough to stay in cache), a tuple of per-axis
+    factors for 3-D+ grids (one fewer full-grid read per step)."""
     if len(shape) >= 3:
         return tuple(f.astype(dtype) for f in _sponge_factors(
             shape, width, strength, free_surface))
@@ -147,8 +144,8 @@ def _mul_sponge(e, sponge):
 
 def _iota_src_mask(shape, src_idx, amp):
     """One-hot source mask computed IN-REGISTER from broadcasted iotas —
-    zero HBM traffic, vs a full-grid read for a stored dense mask (measured
-    ~19% of the 3-D step; see docs §7). Values identical to
+    no memory traffic, vs a full-grid read for a stored dense mask. Values
+    identical to
     ``zeros.at[src_idx].set(amp)``. Works under vmap (per-shot ``src_idx``
     broadcasts)."""
     nd = len(shape)
@@ -202,7 +199,7 @@ def _trace_resampler(nt: int, dt: float, dtrec, dtype=jnp.float32):
 
 
 def _scan_remat(step, carry, xs, remat_blocks: int):
-    """``lax.scan`` with blocked rematerialization — the TPU-native stand-in
+    """``lax.scan`` with blocked rematerialization — the on-device stand-in
     for JetPackWaveFD's compressed wavefield serialization: instead of
     writing forward wavefields to disk for the adjoint pass, time steps are
     grouped into ``remat_blocks`` checkpointed segments, so reverse-mode
@@ -234,12 +231,11 @@ def _scan_remat(step, carry, xs, remat_blocks: int):
     # Closure-convert the step for the blocked (checkpoint-of-scan) path:
     # traced values captured in its closure (e.g. c²dt² derived from the
     # traced model) must cross the checkpoint boundary as explicit
-    # loop-invariant state — a closed-over tracer leaks into the remat
-    # jaxpr's constants, and the TPU lowering of a pallas_call-bearing
-    # body then dies with "No constant handler for DynamicJaxprTracer"
-    # (jax 0.9.0; the remat_blocks=1 path and pure-XLA bodies are
-    # unaffected). The consts ride the scan carry unchanged — XLA hoists
-    # invariant while-loop state, so this costs nothing per step.
+    # loop-invariant state — a closed-over tracer would otherwise leak into
+    # the remat jaxpr's constants, which some lowerings (custom calls,
+    # kernels) cannot handle. The consts ride the scan carry unchanged —
+    # XLA hoists invariant while-loop state, so this costs nothing per
+    # step.
     x0 = jax.tree_util.tree_map(lambda a: a[0], xs)
     step_cc, consts = jax.closure_convert(step, carry, x0)
     consts = tuple(consts)
@@ -284,7 +280,7 @@ def _store_codec(store: str, dtype):
 
 def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                remat_blocks, order: int = 2, src_mask=None, extract=None,
-               fused=None, wavefield_sharding=None):
+               wavefield_sharding=None):
     """Leapfrog time stepping; returns receiver traces (nt, nrcv).
 
     ``remat_blocks`` groups time steps into checkpointed segments so
@@ -294,32 +290,20 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     ``src_mask``/``extract`` override the default on-grid point injection /
     flat-gather extraction (used by the off-grid Kaiser-sinc geometry).
 
-    ``fused`` selects the Pallas fused-step kernel
-    (``pallas_wave.fused_leapfrog_step``: stencil + leapfrog + sponge +
-    source in ONE slab-pipelined HBM pass). ``None`` = auto: on in the 3-D
-    HBM-bound regime on TPU backends, off on CPU and whenever the config
-    doesn't fit (custom src_mask, non-f32, unaligned minor dims). Callers
-    that vmap this function (multishot) must pass ``fused=False`` — the
-    kernel's manual DMAs don't batch.
-
     ``wavefield_sharding`` (a ``NamedSharding``) constrains the scan-carry
     wavefields so the GRID AXIS of the model shards over the mesh — the
-    "model larger than one chip's HBM" axis of BASELINE config #5: under
-    ``jit``, XLA/GSPMD partitions the whole leapfrog and inserts the
-    stencil's halo exchanges as collective-permutes over ICI. Incompatible
-    with ``fused`` (a Pallas call is a manual-partition black box): grid
-    sharding rides the XLA step.
+    "model larger than one device's memory" axis of BASELINE config #5:
+    under ``jit``, XLA/GSPMD partitions the whole leapfrog and inserts the
+    stencil's halo exchanges as collective-permutes.
     """
     shape = c.shape
     c2dt2 = (c * c) * (dt * dt) / (dx * dx)
-    nt = src_wavelet.shape[0]
 
     # one-hot source mask: a scatter inside the step is its own un-fused
     # XLA op per time step; a mask add fuses into the same elementwise pass
-    # as the leapfrog update. In 1-/2-D (VMEM-resident regime) the mask is
-    # a stored dense array; in 3-D (HBM-bound) it is recomputed in-register
-    # from iotas — a stored mask is a full-grid HBM read per step (~19% of
-    # the 256³ step, measured; docs §7). Values are identical either way.
+    # as the leapfrog update. In 1-/2-D the mask is a stored dense array;
+    # in 3-D it is recomputed in-register from iotas, which saves a
+    # full-grid read per step. Values are identical either way.
     size = 1
     for s in shape:
         size *= int(s)
@@ -329,99 +313,19 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
             jnp.zeros((size,), c.dtype).at[src_idx].set(dt * dt)
             .reshape(shape)
         )
-    default_extract = extract is None
     if extract is None:
         extract = lambda u: u.reshape(-1)[rcv_idx]  # noqa: E731
     amp = jnp.asarray(dt * dt, c.dtype)
 
-    can_fuse = (wavefield_sharding is None and iota_src
-                and isinstance(sponge, tuple) and len(shape) == 3)
-    if can_fuse:
-        from .pallas_wave import fits_wave_pallas
-
-        can_fuse = fits_wave_pallas(shape, c.dtype, order)
-    if fused is None:
-        fused = can_fuse and jax.default_backend() != "cpu"
-    elif fused and not can_fuse:
-        # fused=True UNDER a z-slab grid sharding: the explicit shard_map
-        # halo-exchange path (ppermute around the Pallas kernel) — the
-        # opt-in prototype of the multi-chip fused step. The GSPMD XLA
-        # step stays the fused=None default under sharding.
-        if (wavefield_sharding is not None and iota_src and default_extract
-                and isinstance(sponge, tuple)
-                and fits_fused_sharded(shape, c.dtype, order,
-                                       wavefield_sharding)):
-            return _propagate_fused_sharded(
-                c, src_wavelet, src_idx, rcv_idx, dt=dt, dx=dx,
-                sponge=sponge, remat_blocks=remat_blocks, order=order,
-                ws=wavefield_sharding)
-        raise ValueError(
-            "fused wave step requires a 3-D f32 grid with aligned minor "
-            "dims and the default on-grid source/receivers; under "
-            "wavefield_sharding additionally a z-only slab sharding "
-            "whose halo-extended slab is kernel-feasible"
-        )
-
-    if fused:
-        from .pallas_wave import fused_leapfrog_step
-
-        interp = jax.default_backend() == "cpu"
-        spz = sponge[0][:, 0, 0]                 # (D,) → SMEM
-        spy = sponge[1][0]                       # (H, 1)
-        spx = sponge[2][0]                       # (1, W)
-
-        # The Pallas kernel has no autodiff rules: wrap it in custom_jvp
-        # with the XLA leapfrog expression as the tangent (linear in the
-        # tangents, so JAX also transposes it for the adjoint/FWI path —
-        # only the nonlinear forward rides the fused kernel).
-        #
-        # EVERY array the kernel or the jvp rule needs is an EXPLICIT
-        # argument — no array closures. A custom_jvp whose RULE closes
-        # over values created inside the caller's trace (spz/amp are
-        # state-derived, i.e. tracers whenever the operator itself is
-        # traced) leaks those tracers as jaxpr constants through the
-        # remat_blocks>1 checkpoint-of-scan, and the TPU lowering dies
-        # with "No constant handler for DynamicJaxprTracer" (jax 0.9.0;
-        # _scan_remat's closure_convert rewrites only the primal, not
-        # the rule). Config-constant tangents (sponge, source) are
-        # ignored by the rule.
-        @jax.custom_jvp
-        def step_core(u_prev, u, c2, s_t, spz_, spy_, spx_, sidx, amp_):
-            return fused_leapfrog_step(
-                u_prev, u, c2, spz_, spy_, spx_, s_t, sidx, amp_,
-                order=order, interpret=interp,
-            )
-
-        @step_core.defjvp
-        def _step_jvp(primals, tangents):
-            up, u, c2, st, spz_, spy_, spx_, sidx, amp_ = primals
-            dup, du, dc2, dst = tangents[:4]
-            out = step_core(*primals)
-            spf = (spz_.reshape(-1, 1, 1), spy_.reshape(1, -1, 1),
-                   spx_.reshape(1, 1, -1))
-            mask = _iota_src_mask(shape, sidx, amp_)
-            dout = _mul_sponge(
-                2.0 * du - dup + dc2 * _laplacian(u, order=order)
-                + c2 * _laplacian(du, order=order), spf
-            ) + dst * mask
-            return out, dout
-
-        def step(carry, s_t):
-            u_prev, u = carry
-            u_next = step_core(u_prev, u, c2dt2, s_t, spz, spy, spx,
-                               src_idx, amp)
-            rec = extract(u_next)
-            return (u, u_next), rec
-    else:
-        def step(carry, s_t):
-            u_prev, u = carry
-            lap = _laplacian(u, order=order)
-            mask = (_iota_src_mask(shape, src_idx, amp) if iota_src
-                    else src_mask)
-            u_next = _mul_sponge(2.0 * u - u_prev + c2dt2 * lap, sponge) \
-                + s_t * mask
-            rec = extract(u_next)
-            return (u, u_next), rec
+    def step(carry, s_t):
+        u_prev, u = carry
+        lap = _laplacian(u, order=order)
+        mask = (_iota_src_mask(shape, src_idx, amp) if iota_src
+                else src_mask)
+        u_next = _mul_sponge(2.0 * u - u_prev + c2dt2 * lap, sponge) \
+            + s_t * mask
+        rec = extract(u_next)
+        return (u, u_next), rec
 
     # seed the carry with a src-derived zero so its batching/varying type
     # already matches the loop body's output under vmap/shard_map (the
@@ -434,205 +338,15 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
         # initial carry propagates; without it XLA may replicate)
         u0 = lax.with_sharding_constraint(u0, wavefield_sharding)
 
-    if fused:
-        # Fused-kernel path: unroll TWO time steps per scan iteration. The
-        # leapfrog carry (u_prev, u) -> (u, u_next) ROTATES positions; the
-        # paired body (u_prev, u) -> (u2, u3) writes both slots fresh, so
-        # the kernel's u_prev->u_next aliasing donates cleanly and no
-        # rotation copy appears (measured on 256³ f32 TPU v5e: XLA 613,
-        # fused unpaired 728, fused paired 426 µs/step). The SAME unroll
-        # applied to the XLA path is a REGRESSION (613 -> 782 µs: XLA
-        # already elides the rotation, and the paired body adds live
-        # buffers that de-fuse), so it is tied to `fused`, not to ndim.
-        one_step = step
-
-        def step(carry, s_pair):
-            c1, r1 = one_step(carry, s_pair[0])
-            c2_, r2 = one_step(c1, s_pair[1])
-            return c2_, jnp.stack((r1, r2))
-
-        pad = nt % 2
-        wav = src_wavelet
-        if pad:
-            wav = jnp.concatenate(
-                [wav, jnp.zeros((1,) + wav.shape[1:], wav.dtype)])
-        xs = wav.reshape(((nt + pad) // 2, 2) + wav.shape[1:])
-        (_, _), traces = _scan_remat(step, (u0, u0), xs, remat_blocks)
-        return traces.reshape((nt + pad,) + traces.shape[2:])[:nt]
-
     (_, _), traces = _scan_remat(step, (u0, u0), src_wavelet, remat_blocks)
     return traces
 
 
-def _zonly_axis(ws, ndim):
-    """The mesh axis name when ``ws`` shards axis 0 ONLY (the z-slab
-    layout the fused sharded step supports), else None."""
-    try:
-        spec = tuple(ws.spec)
-    except Exception:  # noqa: BLE001
-        return None
-    if not spec or spec[0] is None or isinstance(spec[0], tuple):
-        return None
-    for s in spec[1:]:
-        if s is not None:
-            return None
-    return spec[0]
-
-
-def _propagate_fused_sharded(c, src_wavelet, src_idx, rcv_idx, *, dt, dx,
-                             sponge, remat_blocks, order, ws):
-    """The fused Pallas leapfrog under an EXPLICIT z-slab ``shard_map``:
-    each device owns a ``(D/n, H, W)`` slab; per step the ``hw`` boundary
-    slices travel to the neighbors by ``lax.ppermute`` (ICI halo
-    exchange — non-participating edge shards receive ppermute's zero
-    fill, which IS the global zero boundary), the kernel runs on the
-    halo-extended slab, and the interior is kept. The receiver row is a
-    masked local gather ``psum``-assembled across shards. Halo traffic:
-    ``2·hw·H·W·4`` bytes per step per interior boundary — recorded in
-    the scaling artifact (``benchmarks/scaling.py``).
-
-    This is the prototype of the model-larger-than-one-chip fused path
-    (docs §7 names it as the successor to the GSPMD XLA step); real
-    multi-chip perf cannot be measured in this environment, so the
-    XLA/GSPMD step remains the ``fused=None`` default under sharding.
-    Tangent/adjoint ride a ``custom_jvp`` whose rule is the halo-extended
-    XLA leapfrog (ppermute is linear and transposes to the reverse
-    permutation, so FWI gradients stay exact)."""
-    from jax.sharding import PartitionSpec as P
-
-    from .pallas_wave import fused_leapfrog_step
-    from .stencil import _D2_COEFFS
-
-    mesh = ws.mesh
-    axname = _zonly_axis(ws, c.ndim)
-    n = int(mesh.shape[axname])
-    D, H, W = c.shape
-    Dl = D // n
-    hw = len(_D2_COEFFS[order][1])
-    dtype = c.dtype
-    c2dt2 = (c * c) * (dt * dt) / (dx * dx)
-    amp = jnp.asarray(dt * dt, dtype)
-    spz = sponge[0][:, 0, 0]
-    spy = sponge[1][0]
-    spx = sponge[2][0]
-    interp = jax.default_backend() == "cpu"
-    nt = int(src_wavelet.shape[0])
-    fwd_perm = [(j, j + 1) for j in range(n - 1)]
-    bwd_perm = [(j + 1, j) for j in range(n - 1)]
-
-    def shard_fn(c2_l, spz_l, wav, sidx, ridx):
-        zidx = lax.axis_index(axname)
-        z0 = zidx * Dl
-        hwp = H * W
-        sz_g = sidx // hwp
-        in_shard = (sz_g >= z0) & (sz_g < z0 + Dl)
-        # extended-local flat source index (halo offset +hw planes), or
-        # -1 on shards that don't hold the source (iota never matches)
-        src_l = jnp.where(in_shard,
-                          (sz_g - z0 + hw) * hwp + sidx % hwp,
-                          -1)
-        rz = ridx // hwp
-        r_in = ((rz >= z0) & (rz < z0 + Dl)).astype(dtype)
-        r_loc = jnp.where(r_in > 0, (rz - z0) * hwp + ridx % hwp, 0)
-        # halo z's of the sponge/c² are edge-padded: their OUTPUT slices
-        # are discarded, the values only need to exist
-        spz_ext = jnp.concatenate(
-            [jnp.broadcast_to(spz_l[:1], (hw,)), spz_l,
-             jnp.broadcast_to(spz_l[-1:], (hw,))])
-        c2_ext = jnp.pad(c2_l, ((hw, hw), (0, 0), (0, 0)))
-        ext_shape = (Dl + 2 * hw, H, W)
-
-        def extend(u_l):
-            above = lax.ppermute(u_l[Dl - hw:], axname, fwd_perm)
-            below = lax.ppermute(u_l[:hw], axname, bwd_perm)
-            return jnp.concatenate([above, u_l, below], axis=0)
-
-        @jax.custom_jvp
-        def step_core(up_l, u_l, c2e, s_t, src_l_, amp_):
-            up_ext = jnp.pad(up_l, ((hw, hw), (0, 0), (0, 0)))
-            out = fused_leapfrog_step(
-                up_ext, extend(u_l), c2e, spz_ext, spy, spx, s_t,
-                src_l_, amp_, order=order, interpret=interp)
-            return out[hw:hw + Dl]
-
-        @step_core.defjvp
-        def _step_jvp(primals, tangents):
-            out = step_core(*primals)
-            _up, _u, _c2e, _st, src_l_, amp_ = primals
-            spf = (spz_ext.reshape(-1, 1, 1), spy.reshape(1, -1, 1),
-                   spx.reshape(1, 1, -1))
-            mask = _iota_src_mask(ext_shape, src_l_, amp_)
-
-            def xla_step(up_l, u_l, c2e, s_t):
-                up_ext = jnp.pad(up_l, ((hw, hw), (0, 0), (0, 0)))
-                u_ext = extend(u_l)
-                e = _mul_sponge(
-                    2.0 * u_ext - up_ext
-                    + c2e * _laplacian(u_ext, order=order), spf
-                ) + s_t * mask
-                return e[hw:hw + Dl]
-
-            _, dout = jax.jvp(xla_step, primals[:4], tangents[:4])
-            return out, dout
-
-        def one_step(carry, s_t):
-            u_prev, u = carry
-            u_next = step_core(u_prev, u, c2_ext, s_t, src_l, amp)
-            rec = lax.psum(u_next.reshape(-1)[r_loc] * r_in, axname)
-            return (u, u_next), rec
-
-        def step(carry, s_pair):
-            c1, r1 = one_step(carry, s_pair[0])
-            c2_, r2 = one_step(c1, s_pair[1])
-            return c2_, jnp.stack((r1, r2))
-
-        pad = nt % 2
-        w = wav
-        if pad:
-            w = jnp.concatenate([w, jnp.zeros((1,), w.dtype)])
-        xs = w.reshape(((nt + pad) // 2, 2))
-        zero = (sidx * 0).astype(dtype)
-        u0 = jnp.zeros((Dl, H, W), dtype) + zero
-        (_, _), traces = _scan_remat(step, (u0, u0), xs, remat_blocks)
-        return traces.reshape((nt + pad,) + traces.shape[2:])[:nt]
-
-    return jax.shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(P(axname), P(axname), P(), P(), P()),
-        out_specs=P(),
-        # a pallas_call's out_shape carries no varying-axis info, so the
-        # vma checker cannot type it; the trace row is made replicated
-        # explicitly by the psum above
-        check_vma=False,
-    )(c2dt2, spz, src_wavelet, jnp.asarray(src_idx, jnp.int32),
-      jnp.asarray(rcv_idx, jnp.int32))
-
-
-def fits_fused_sharded(shape, dtype, order, ws) -> bool:
-    """True when the shard_map fused leapfrog applies: 3-D f32 grid,
-    z-only sharding whose slab count divides D, and a kernel-feasible
-    halo-extended slab."""
-    from .pallas_wave import fits_wave_pallas
-    from .stencil import _D2_COEFFS
-
-    if ws is None or len(shape) != 3:
-        return False
-    ax = _zonly_axis(ws, 3)
-    if ax is None or ax not in ws.mesh.shape:
-        return False
-    n = int(ws.mesh.shape[ax])
-    D, H, W = shape
-    if D % n:
-        return False
-    hw = len(_D2_COEFFS[order][1])
-    return fits_wave_pallas((D // n + 2 * hw, H, W), dtype, order)
-
-
 def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
-                    order: int = 2, store: str = "int8", fused=None,
+                    order: int = 2, store: str = "int8",
                     wavefield_sharding=None, src_mask=None, inject=None):
     """Adjoint-state gradient ``(∂F/∂c)ᵀ dd`` with a STORED forward-
-    wavefield history — the TPU-native equivalent of JetPackWaveFD's
+    wavefield history — the on-device equivalent of JetPackWaveFD's
     production imaging path, where the forward wavefield is serialized
     through the lossy CvxCompress codec and read back during the adjoint
     sweep instead of being recomputed. Here the history stays ON DEVICE,
@@ -656,24 +370,13 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     complementary point to ``remat_blocks`` (O(√nt·grid) with a 2nd
     forward sweep) on the reference family's storage/recompute trade
     (``utils/compression.py`` holds the host-side codec + SnapshotStore
-    half of that slot).
-
-    ``fused`` selects the Pallas fast path for BOTH sweeps: the forward
-    sweep rides :func:`pallas_wave.fused_leapfrog_step` and the reverse
-    sweep :func:`pallas_wave.fused_adjoint_step` (the whole recurrence —
-    both stencils, sponge products and the gc2 accumulation — in one
-    slab-pipelined HBM pass per step, with the encoded history streamed
-    at its stored width so an int8 history costs a quarter-touch).
-    ``None`` = auto on TPU in the 3-D regime. At order 2 with
-    ``store="f32"`` the fused and XLA paths are bit-identical (gated by
-    ``tests/test_pallas_wave.py``)."""
+    half of that slot)."""
     shape = c.shape
     dtype = c.dtype
     c2dt2 = (c * c) * (dt * dt) / (dx * dx)
     size = 1
     for s in shape:
         size *= int(s)
-    custom_geom = src_mask is not None or inject is not None
     iota_src = src_mask is None and len(shape) >= 3
     amp = jnp.asarray(dt * dt, dtype)
     if src_mask is None and not iota_src:
@@ -706,106 +409,6 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     dd_shift = jnp.concatenate(
         [jnp.zeros((1,) + dd.shape[1:], dtype), dd[:-1]], axis=0)
 
-    can_fuse = (wavefield_sharding is None and not custom_geom
-                and iota_src and isinstance(sponge, tuple)
-                and len(shape) == 3)
-    if can_fuse:
-        from .pallas_wave import fits_adjoint_pallas, fits_wave_pallas
-
-        can_fuse = (fits_adjoint_pallas(shape, dtype, order, store)
-                    and fits_wave_pallas(shape, dtype, order))
-    if fused is None:
-        fused = can_fuse and jax.default_backend() != "cpu"
-    elif fused and not can_fuse:
-        raise ValueError(
-            "fused stored-adjoint requires a 3-D f32 grid with "
-            "lane/sublane-aligned minor dims (the history dtype tightens "
-            "the sublane requirement: H%16==0 for bf16, H%32==0 for int8)"
-        )
-
-    if fused:
-        from .pallas_wave import fused_adjoint_step, fused_leapfrog_step
-
-        interp = jax.default_backend() == "cpu"
-        spz = sponge[0][:, 0, 0]
-        spy = sponge[1][0]
-        spx = sponge[2][0]
-
-        # ---- forward sweep on the fused leapfrog kernel, paired two
-        # steps per iteration so the kernel's u_prev->u_next aliasing
-        # donates with no carry-rotation copies (the _propagate finding).
-        # NOTE (r5): an in-kernel history-encode variant (quantize the
-        # ring-resident center + per-slab max outputs, deferred scale)
-        # was built and MEASURED SLOWER here (1355 vs 1313 µs/step at
-        # 256³ int8) — the single-field XLA encode apparently fuses its
-        # quantize pass into the history stacking, so the kernel only
-        # displaced ~1 touch while paying the in-kernel cross-lane max
-        # reduction. The SAME rewrite wins on the TWO-field anisotropic
-        # sweeps (VTI 3380→3130) where the encode traffic doubles —
-        # those keep it (fused_vti/tti_hist_step). Always measure.
-        def fwd_one(carry, s_t):
-            u_prev, u = carry
-            u_next = fused_leapfrog_step(
-                u_prev, u, c2dt2, spz, spy, spx, s_t, src_idx, amp,
-                order=order, interpret=interp)
-            return (u, u_next), enc(u)
-
-        def fwd_pair(carry, s_pair):
-            c1, h1 = fwd_one(carry, s_pair[0])
-            c2_, h2 = fwd_one(c1, s_pair[1])
-            return c2_, jax.tree_util.tree_map(
-                lambda a, b: jnp.stack((a, b)), h1, h2)
-
-        padf = nt % 2
-        wav = src_wavelet
-        if padf:
-            wav = jnp.concatenate(
-                [wav, jnp.zeros((1,) + wav.shape[1:], wav.dtype)])
-        xsf = wav.reshape(((nt + padf) // 2, 2) + wav.shape[1:])
-        (_, _), (hist, scales) = lax.scan(fwd_pair, (u0, u0), xsf)
-        hist = hist.reshape((nt + padf,) + hist.shape[2:])[:nt]
-        scales = scales.reshape((nt + padf,) + scales.shape[2:])[:nt]
-
-        # ---- reverse sweep on the fused adjoint kernel. The scan carries
-        # (a_{k+1}, a_{k+2}, gc2) and is ALSO paired: both adjoint-field
-        # slots are written fresh each iteration, so the kernel's
-        # a_{k+2}->a_k / gc2->gc2 aliasing donates cleanly. Front-pad to
-        # an even step count with a dummy step k=-1 (zero history, zero
-        # residual: gc2 untouched, its a_{-1} output discarded).
-        def adj_one(a1, a2, gc2, q, s, g):
-            sc = (s / 127.0) if store == "int8" \
-                else jnp.asarray(1.0, dtype)
-            core, gc2 = fused_adjoint_step(
-                a1, a2, gc2, c2dt2, q, sc, spz, spy, spx,
-                order=order, interpret=interp)
-            a_k = core.reshape(-1).at[rcv_idx].add(g).reshape(shape)
-            return a_k, gc2
-
-        def bpair(carry, xs):
-            a1, a2, gc2 = carry
-            q2, s2, g2 = xs
-            a_hi, gc2 = adj_one(a1, a2, gc2, q2[1], s2[1], g2[1])
-            a_lo, gc2 = adj_one(a_hi, a1, gc2, q2[0], s2[0], g2[0])
-            return (a_lo, a_hi, gc2), None
-
-        padr = nt % 2
-        hist_r, scales_r, grec_r = hist, scales, dd_shift
-        if padr:
-            hist_r = jnp.concatenate(
-                [jnp.zeros_like(hist[:1]), hist])
-            scales_r = jnp.concatenate(
-                [jnp.ones_like(scales[:1]), scales])
-            grec_r = jnp.concatenate(
-                [jnp.zeros_like(dd_shift[:1]), dd_shift])
-        nt2 = nt + padr
-        xsr = tuple(
-            a.reshape((nt2 // 2, 2) + a.shape[1:])
-            for a in (hist_r, scales_r, grec_r))
-        carry0 = (inject(dd[-1]), jnp.zeros(shape, dtype) + zero,
-                  jnp.zeros(shape, dtype) + zero)
-        (_, _, gc2), _ = lax.scan(bpair, carry0, xsr, reverse=True)
-        return gc2 * (2.0 * c) * jnp.asarray((dt * dt) / (dx * dx), dtype)
-
     def fstep(carry, s_t):
         u_prev, u = carry
         u_next = _mul_sponge(
@@ -821,8 +424,8 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
         u_k = dec(q, s)
         ebar = _mul_sponge(a_nxt, sponge)
         gc2 = gc2 + _laplacian(u_k, order=order) * ebar
-        # sum order pinned to the fused kernel's tree: the stencil/sponge
-        # core first, the (sparse) receiver injection added LAST
+        # sum order: the stencil/sponge core first, the (sparse)
+        # receiver injection added last
         a_k = (2.0 * ebar + _laplacian(c2dt2 * ebar, order=order)
                - ebar_nxt) + inject(grec_prev)
         return (a_k, ebar, gc2), None
@@ -846,7 +449,6 @@ def wave_propagator(
     space_order: int = 2,
     remat_blocks: int = 1,
     free_surface: bool = False,
-    fused=None,
     dtrec: Optional[float] = None,
     store_adjoint: Optional[str] = None,
     wavefield_sharding=None,
@@ -856,13 +458,9 @@ def wave_propagator(
 
     ``wavefield_sharding`` (a ``jax.sharding.NamedSharding``) grid-shards
     the propagating wavefields (and the stored adjoint history) over a
-    device mesh — the model-larger-than-one-chip axis: place the velocity
-    with the same sharding and jit; XLA/GSPMD partitions the leapfrog and
-    inserts the stencil halo exchanges. Rides the XLA step (incompatible
-    with ``fused``).
-
-    ``fused`` controls the Pallas fused-step fast path for 3-D grids
-    (``None`` = auto on TPU; see :func:`_propagate`).
+    device mesh — the model-larger-than-one-device axis: place the
+    velocity with the same sharding and jit; XLA/GSPMD partitions the
+    leapfrog and inserts the stencil halo exchanges.
 
     Domain: the velocity grid. Range: ``(ntrec, nrcv)`` receiver traces —
     ``ntrec = nt`` unless ``dtrec`` (the recording sample interval,
@@ -883,34 +481,6 @@ def wave_propagator(
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
-    if fused and wavefield_sharding is not None:
-        # opt-in shard_map fused path (explicit ppermute halo exchange
-        # around the Pallas kernel) — requires a z-only slab sharding
-        # with a kernel-feasible halo-extended slab
-        if not fits_fused_sharded(grid_shape, dtype, space_order,
-                                  wavefield_sharding):
-            raise ValueError(
-                "fused wave step under wavefield_sharding requires a "
-                "z-only slab sharding of a 3-D f32 grid whose "
-                "halo-extended slab is kernel-feasible (W%128==0, "
-                "H%8==0, slab count divides D); the GSPMD XLA step "
-                "(fused=None) has no such restriction"
-            )
-    elif fused:
-        from .pallas_wave import fits_adjoint_pallas, fits_wave_pallas
-
-        if not fits_wave_pallas(grid_shape, dtype, space_order):
-            raise ValueError(
-                "fused wave step requires a 3-D f32 grid with "
-                "lane/sublane-aligned minor dims (W%128==0, H%8==0)"
-            )
-        if store_adjoint is not None and not fits_adjoint_pallas(
-                grid_shape, dtype, space_order, store_adjoint):
-            raise ValueError(
-                "fused stored-adjoint infeasible for this config (history "
-                "dtype tightens the sublane requirement: H%16==0 for "
-                "bf16, H%32==0 for int8)"
-            )
     sp = Space(grid_shape, dtype)
     if rcv_idx is None:
         n = sp.size
@@ -926,7 +496,7 @@ def wave_propagator(
         traces = _propagate(
             c, state["wavelet"], state["src_idx"], state["rcv_idx"],
             dt=dt, dx=dx, sponge=state["sponge"],
-            remat_blocks=remat_blocks, order=space_order, fused=fused,
+            remat_blocks=remat_blocks, order=space_order,
             wavefield_sharding=wavefield_sharding,
         )
         return _resample(traces) if _resample is not None else traces
@@ -957,7 +527,6 @@ def wave_propagator(
                 m0, dd, state["wavelet"], state["src_idx"],
                 state["rcv_idx"], dt=dt, dx=dx, sponge=state["sponge"],
                 order=space_order, store=store_adjoint,
-                fused=False if wavefield_sharding is not None else fused,
                 wavefield_sharding=wavefield_sharding,
             )
 
@@ -1017,21 +586,19 @@ def multishot_wave_operator(
 ) -> Operator:
     """Nonlinear multi-shot modeling ``F: c -> (nshots, ntrec, nrcv)``
     (``shot_map="map"`` runs the local shots as a sequential ``lax.map``
-    instead of one vmapped program — each shot then rides the Pallas fused
-    3-D step, which does not batch under vmap; measured per-shot step
-    1.46× faster in the fused regime)
-    (``ntrec = nt`` unless the recording interval ``dtrec`` is given —
+    instead of one vmapped program, holding one shot's wavefields at a
+    time) (``ntrec = nt`` unless the recording interval ``dtrec`` is given —
     see :func:`_trace_resampler`).
 
     Per-shot state is the source location; receivers are a fixed shared
     array. Forward/tangent vmap the leapfrog propagator over shots (and
     shard over the mesh block axis); the adjoint is the per-shot reverse
-    propagation summed across shots — a ``psum`` over ICI in the sharded
-    case, exactly the reference's block-adjoint accumulation.
+    propagation summed across shots — a ``psum`` over the mesh in the
+    sharded case, exactly the reference's block-adjoint accumulation.
 
     **Ginsu windowing** (JetPackWaveFD's per-shot model subsetting): pass
-    ``window_shape`` (one static shape for every shot — the TPU-first
-    ragged-window design: uniform windows vmap/shard like any stacked
+    ``window_shape`` (one static shape for every shot — the ragged-window
+    design: uniform windows vmap/shard like any stacked
     block) and per-shot ``window_corners`` ``(nshots, ndim)``. Each shot
     then propagates only inside ``c[corner : corner+window_shape]``
     (``lax.dynamic_slice``); ``src_indices``/``rcv_idx`` become
@@ -1042,10 +609,9 @@ def multishot_wave_operator(
 
     ``store_adjoint`` ∈ {None, "f32", "bf16", "int8"} switches the
     per-shot adjoint from autodiff to the stored-wavefield sweep
-    (:func:`_adjoint_stored`) — with ``shot_map="map"`` each shot then
-    rides the fused Pallas forward AND reverse kernels, the production
-    FWI/RTM gradient path (shot contributions still accumulate via the
-    stacked psum, the reference's block-adjoint loop).
+    (:func:`_adjoint_stored`), the production FWI/RTM gradient path (shot
+    contributions accumulate via the stacked psum, the reference's
+    block-adjoint loop).
 
     **Boundaries** (marine production multishot): ``free_surface=True``
     leaves the top edge of axis 0 undamped — the zero-padded stencil
@@ -1135,9 +701,6 @@ def multishot_wave_operator(
                 c, bs["wavelet"], bs["src"], bs["rcv"],
                 dt=dt, dx=dx, sponge=bs["sponge"],
                 remat_blocks=remat_blocks, order=space_order,
-                # vmapped shots can't run the fused kernel (manual DMAs
-                # don't batch); sequential lax.map shots can
-                fused=None if shot_map == "map" else False,
             )
         return _resample(traces) if _resample is not None else traces
 
@@ -1175,7 +738,6 @@ def multishot_wave_operator(
                 c, d_b, bs["wavelet"], bs["src"], bs["rcv"],
                 dt=dt, dx=dx, sponge=bs["sponge"], order=space_order,
                 store=store_adjoint,
-                fused=None if shot_map == "map" else False,
             )
             if window_shape is not None:
                 g = lax.dynamic_update_slice(
@@ -1209,7 +771,7 @@ def multishot_wave_operator(
 # reference family's FD propagators use PML; the sponge above is the cheap
 # default). Second-order-form convolutional PML with two memory variables
 # per axis (psi on the first derivative, zeta on the second), after
-# Pasalic & McGarry (SEG 2010). TPU-first shape: the memory variables are
+# Pasalic & McGarry (SEG 2010). Layout: the memory variables are
 # FULL-GRID fields whose update coefficients (a, b) are zero/one in the
 # interior, so every update is one fused elementwise pass — no boundary
 # strips, no scatters, no data-dependent control flow inside the scan.
@@ -1837,40 +1399,28 @@ def vdq_wave_propagator(
 #     u_tt + 2 gamma u_t = c^2 lap(u) + s
 #
 # discretized with the centered-in-time damping term so the scheme stays
-# 2nd-order and, crucially for TPU, the update stays ONE fused elementwise
-# pass: u+ = (2u - (1-g) u- + c^2 dt^2 lap + s) / (1+g) with g = gamma dt
+# 2nd-order and the update stays ONE fused elementwise pass:
+# u+ = (2u - (1-g) u- + c^2 dt^2 lap + s) / (1+g) with g = gamma dt
 # computed in-register from the Q model block. Q -> inf (g -> 0) reduces
 # bit-for-bit to the lossless leapfrog (pinned by the suite).
 # ---------------------------------------------------------------------------
 
 
 def _propagate_q(c, q, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
-                 order: int = 2, remat_blocks: int = 1, fused=None,
-                 coeff_dtype=None):
+                 order: int = 2, remat_blocks: int = 1, coeff_dtype=None):
     """Leapfrog with Kosloff constant-Q friction; returns (nt, nrcv).
-    ``fused`` selects the Pallas attenuating step
-    (``pallas_wave.fused_q_step``) — the round-4 single-g-field kernel
-    (the round-3 two-field version measured slower than XLA in-loop;
-    see ``pallas_wave.py``). ``None`` = auto on TPU in the 3-D regime
-    ONLY with ``coeff_dtype=jnp.bfloat16`` (the measured-winning config:
-    470 vs 525 µs/step; f32 g measured 618 and stays opt-in).
-    ``coeff_dtype=jnp.bfloat16`` streams the friction field g = γ·dt at
-    half width (straight-through rounding, as in the TTI coefficient
-    mode). Callers that vmap this must pass ``fused=False``."""
+    ``coeff_dtype=jnp.bfloat16`` rounds the friction field g = γ·dt to
+    bf16 (straight-through rounding, as in the TTI coefficient mode)."""
     import math
 
     shape = c.shape
     c2dt2 = (c * c) * (dt * dt) / (dx * dx)
     g = (math.pi * f0 * dt) / q                  # gamma·dt, full-grid field
-    coeff16 = (coeff_dtype is not None
-               and jnp.dtype(coeff_dtype) == jnp.bfloat16)
-    kg = None
-    if coeff16:
+    if coeff_dtype is not None and jnp.dtype(coeff_dtype) == jnp.bfloat16:
         # straight-through bf16 rounding of g via reduce_precision (an
-        # astype round-trip is elided under xla_allow_excess_precision —
-        # see _propagate_tti3d)
+        # astype round-trip may be elided under excess precision — see
+        # _propagate_tti3d)
         g16 = lax.reduce_precision(lax.stop_gradient(g), 8, 7)
-        kg = g16.astype(jnp.bfloat16)
         g = g + lax.stop_gradient(g16 - g)
     inv1pg = 1.0 / (1.0 + g)
     om1g = 1.0 - g
@@ -1885,91 +1435,6 @@ def _propagate_q(c, q, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
             jnp.zeros((size,), c.dtype).at[src_idx].set(dt * dt)
             .reshape(shape)
         )
-
-    can_fuse = iota_src and isinstance(sponge, tuple) and len(shape) == 3
-    if can_fuse:
-        from .pallas_wave import fits_q_pallas
-
-        can_fuse = fits_q_pallas(shape, c.dtype, order,
-                                 2 if coeff16 else 4)
-    if fused is None:
-        # MEASURED in-loop (256³ f32, TPU v5e, marginal over nt budgets):
-        # the single-g-field kernel at T=4 runs 618 µs/step with an f32 g
-        # (still behind the 525 µs XLA body — the g read + in-register
-        # divide don't pay for themselves at full width) but 470 µs with
-        # a bf16 g — the only fused-Q config that beats XLA. Auto-select
-        # therefore only in the bf16-coefficient mode; f32 stays opt-in.
-        fused = coeff16 and can_fuse and jax.default_backend() != "cpu"
-    elif fused and not can_fuse:
-        raise ValueError(
-            "fused Q step requires a 3-D f32 grid with aligned minor dims"
-        )
-
-    if fused:
-        from .pallas_wave import fused_q_step
-
-        interp = jax.default_backend() == "cpu"
-        spz = sponge[0][:, 0, 0]
-        spy = sponge[1][0]
-        spx = sponge[2][0]
-        kg_ = kg if kg is not None else g
-
-        # every kernel/rule array is an explicit argument — see the iso
-        # fused branch for why (rule closures over traced state leak
-        # through the remat checkpoint on TPU). kg_ is the kernel's
-        # (possibly bf16) friction field; the f32 arg g_ is its exact
-        # upcast, which the rule differentiates.
-        @jax.custom_jvp
-        def step_core(u_prev, u, c2, g_, s_t, kg__, spz_, spy_, spx_,
-                      sidx, amp_):
-            return fused_q_step(
-                u_prev, u, c2, kg__, spz_, spy_, spx_, s_t, sidx, amp_,
-                order=order, interpret=interp,
-            )
-
-        @step_core.defjvp
-        def _step_jvp(primals, tangents):
-            out = step_core(*primals)
-            spz_, spy_, spx_, sidx, amp_ = primals[6:]
-            spf = (spz_.reshape(-1, 1, 1), spy_.reshape(1, -1, 1),
-                   spx_.reshape(1, 1, -1))
-            mask = _iota_src_mask(shape, sidx, amp_)
-
-            def xla_step(up, u, c2, g_, s_t):
-                lap = _laplacian(u, order=order)
-                return _mul_sponge(
-                    (2.0 * u - (1.0 - g_) * up + c2 * lap)
-                    * (1.0 / (1.0 + g_)), spf
-                ) + s_t * mask
-
-            _, dout = jax.jvp(xla_step, primals[:5], tangents[:5])
-            return out, dout
-
-        def one_step(carry, s_t):
-            u_prev, u = carry
-            u_next = step_core(u_prev, u, c2dt2, g, s_t, kg_,
-                               spz, spy, spx, src_idx, amp)
-            rec = u_next.reshape(-1)[rcv_idx]
-            return (u, u_next), rec
-
-        # paired two-steps-per-iteration: fresh carry writes so the
-        # kernel's in-place aliasing donates with no rotation copies
-        def step(carry, s_pair):
-            c1, r1 = one_step(carry, s_pair[0])
-            c2_, r2 = one_step(c1, s_pair[1])
-            return c2_, jnp.stack((r1, r2))
-
-        nt = int(src_wavelet.shape[0])
-        pad = nt % 2
-        wav = src_wavelet
-        if pad:
-            wav = jnp.concatenate(
-                [wav, jnp.zeros((1,) + wav.shape[1:], wav.dtype)])
-        xs = wav.reshape(((nt + pad) // 2, 2) + wav.shape[1:])
-        zero = (src_idx * 0).astype(c.dtype)
-        u0 = jnp.zeros(shape, c.dtype) + zero
-        (_, _), traces = _scan_remat(step, (u0, u0), xs, remat_blocks)
-        return traces.reshape((nt + pad,) + traces.shape[2:])[:nt]
 
     def step(carry, s_t):
         u_prev, u = carry
@@ -2094,7 +1559,6 @@ def q_wave_propagator(
     sponge_width: int = 12,
     space_order: int = 2,
     remat_blocks: int = 1,
-    fused=None,
     dtrec: Optional[float] = None,
     coeff_dtype=None,
     store_adjoint: Optional[str] = None,
@@ -2102,11 +1566,9 @@ def q_wave_propagator(
 ) -> Operator:
     """Two-parameter visco-acoustic forward modeling ``F: (c, Q) → traces``
     — the attenuation physics of JetPackWaveFD's DenQ propagators.
-    ``coeff_dtype=jnp.bfloat16`` streams the friction field g = γ·dt at
-    half width AND auto-enables the fused Pallas attenuating step on TPU
-    (measured 470 vs 525 µs/step at 256³ — the only fused-Q config that
-    beats the XLA body; with an f32 g the kernel is opt-in ``fused=True``
-    and measured 618 µs).
+    ``coeff_dtype=jnp.bfloat16`` rounds the friction field g = γ·dt to
+    bf16 (straight-through: the primal uses the rounded field, tangents
+    flow in full precision).
 
     Domain: ``BlockSpace([grid, grid])`` holding velocity ``c`` and the
     quality factor ``Q`` (dimensionless; smaller Q = stronger absorption;
@@ -2124,20 +1586,6 @@ def q_wave_propagator(
     if coeff_dtype is not None and jnp.dtype(coeff_dtype) not in (
             jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16)):
         raise ValueError("coeff_dtype must be float32 or bfloat16")
-    coeff_isz = (2 if coeff_dtype is not None
-                 and jnp.dtype(coeff_dtype) == jnp.bfloat16 else 4)
-    if fused:
-        # eager feasibility check, mirroring vti/tti_wave_propagator: an
-        # infeasible shape should raise HERE, not at first application
-        # deep inside jit tracing (ADVICE r3)
-        from .pallas_wave import fits_q_pallas
-
-        if not fits_q_pallas(grid_shape, dtype, space_order, coeff_isz):
-            raise ValueError(
-                "fused Q step requires a 3-D f32 grid with "
-                "lane/sublane-aligned minor dims (W%128==0, H%8==0; "
-                "H%16==0 for a bf16 friction field)"
-            )
     gsp = Space(grid_shape, dtype)
     dom = BlockSpace([gsp, gsp])
     if rcv_idx is None:
@@ -2156,7 +1604,7 @@ def q_wave_propagator(
         traces = _propagate_q(
             c, q, state["wavelet"], state["src_idx"], state["rcv_idx"],
             dt=dt, dx=dx, f0=f0, sponge=state["sponge"], order=space_order,
-            remat_blocks=remat_blocks, fused=fused, coeff_dtype=coeff_dtype,
+            remat_blocks=remat_blocks, coeff_dtype=coeff_dtype,
         )
         return _resample(traces) if _resample is not None else traces
 
@@ -2206,11 +1654,10 @@ def q_wave_propagator(
 
 # ---------------------------------------------------------------------------
 # Off-grid acquisition geometry — JetPackWaveFD's Kaiser-windowed-sinc
-# source/receiver interpolation (Hicks 2002), TPU-first: the per-time-step
-# receiver extraction is ONE static slab slice + small banded MXU matmuls
-# (a flat gather serializes at ~7 ns/element; a (nrcv × n) matmul is
-# microseconds on the MXU), and the fractional source is folded into the
-# existing dense injection mask at construction time (zero extra step cost).
+# source/receiver interpolation (Hicks 2002): the per-time-step receiver
+# extraction is ONE static slab slice + small banded matmuls instead of a
+# flat gather, and the fractional source is folded into the existing dense
+# injection mask at construction time (zero extra step cost).
 # ---------------------------------------------------------------------------
 
 
@@ -2353,7 +1800,7 @@ def offgrid_wave_propagator(
             return _adjoint_stored(
                 m0, dd, state["wavelet"], jnp.int32(0), None,
                 dt=dt, dx=dx, sponge=state["sponge"], order=space_order,
-                store=store_adjoint, fused=False,
+                store=store_adjoint,
                 src_mask=state["src_mask"], inject=inj,
             )
 
@@ -2386,16 +1833,15 @@ def _offgrid_axis_contract(W, u, ax):
 
 def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx,
                    sponge, order: int = 2, remat_blocks: int = 1,
-                   fused=None, og=None, ig=None, wavefield_sharding=None):
+                   og=None, ig=None, wavefield_sharding=None):
     """Coupled leapfrog for the pseudo-acoustic VTI system (axis 0 = z):
 
         p_tt = c² [(1+2ε) Lh(p) + √(1+2δ) ∂zz q] + s
         q_tt = c² [√(1+2δ) Lh(p) + ∂zz q] + s
 
-    with ``Lh`` the horizontal Laplacian (all axes but 0). ``fused``
-    selects the Pallas coupled-step kernel (``pallas_wave.fused_vti_step``)
-    — ``None`` = auto on TPU in the 3-D regime; callers that vmap this
-    (multishot) must pass ``fused=False``."""
+    with ``Lh`` the horizontal Laplacian (all axes but 0). ``og``/``ig``
+    carry static Kosloff constant-Q friction (the DenQ slot of the
+    reference family's anisotropic propagators)."""
     shape = c.shape
     nd = c.ndim
     c2dt2 = (c * c) * (dt * dt)
@@ -2414,24 +1860,6 @@ def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx,
             .reshape(shape)
         )
 
-    # static-Q Kosloff friction (the DenQ slot of the reference family's
-    # anisotropic propagators): the fused kernel does not take friction
-    # fields, so a Q'ed propagator rides the XLA path. Grid sharding also
-    # rides the XLA step (a Pallas call cannot be GSPMD-partitioned).
-    can_fuse = (og is None and wavefield_sharding is None and iota_src
-                and isinstance(sponge, tuple) and len(shape) == 3)
-    if can_fuse:
-        from .pallas_wave import fits_vti_pallas
-
-        can_fuse = fits_vti_pallas(shape, c.dtype, order)
-    if fused is None:
-        fused = can_fuse and jax.default_backend() != "cpu"
-    elif fused and not can_fuse:
-        raise ValueError(
-            "fused VTI step requires a 3-D f32 grid with aligned minor "
-            "dims (and no static-Q friction)"
-        )
-
     def _xla_update(p_prev, p, q_prev, q, c2, ah_, av_, s_t, mask):
         lh = _d2_axis(p, 1, inv_dx2, order)
         for ax in range(2, nd):
@@ -2446,81 +1874,6 @@ def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx,
         p_next = _mul_sponge(e_p, sponge) + s_t * mask
         q_next = _mul_sponge(e_q, sponge) + s_t * mask
         return p_next, q_next
-
-    if fused:
-        from .pallas_wave import fused_vti_step
-
-        interp = jax.default_backend() == "cpu"
-        spz = sponge[0][:, 0, 0]
-        spy = sponge[1][0]
-        spx = sponge[2][0]
-
-        # every kernel/rule array is an explicit argument — see the iso
-        # fused branch for why (rule closures over traced state leak
-        # through the remat checkpoint on TPU)
-        @jax.custom_jvp
-        def step_core(p_prev, p, q_prev, q, c2, ah_, av_, s_t,
-                      spz_, spy_, spx_, idx2, sidx, amp_):
-            return fused_vti_step(
-                p_prev, p, q_prev, q, c2, ah_, av_, spz_, spy_, spx_,
-                idx2, s_t, sidx, amp_, order=order, interpret=interp,
-            )
-
-        @step_core.defjvp
-        def _step_jvp(primals, tangents):
-            (pp, p, qp, q, c2, ah_, av_, st,
-             spz_, spy_, spx_, idx2, sidx, amp_) = primals
-            dpp, dp, dqp, dq, dc2, dah, dav, dst = tangents[:8]
-            out = step_core(*primals)
-            spf = (spz_.reshape(-1, 1, 1), spy_.reshape(1, -1, 1),
-                   spx_.reshape(1, 1, -1))
-            mask = _iota_src_mask(shape, sidx, amp_)
-            lh = _d2_axis(p, 1, idx2, order)
-            for ax in range(2, nd):
-                lh = lh + _d2_axis(p, ax, idx2, order)
-            dzz = _d2_axis(q, 0, idx2, order)
-            dlh = _d2_axis(dp, 1, idx2, order)
-            for ax in range(2, nd):
-                dlh = dlh + _d2_axis(dp, ax, idx2, order)
-            ddzz = _d2_axis(dq, 0, idx2, order)
-            dpn = _mul_sponge(
-                2.0 * dp - dpp + dc2 * (ah_ * lh + av_ * dzz)
-                + c2 * (dah * lh + ah_ * dlh + dav * dzz + av_ * ddzz),
-                spf) + dst * mask
-            dqn = _mul_sponge(
-                2.0 * dq - dqp + dc2 * (av_ * lh + dzz)
-                + c2 * (dav * lh + av_ * dlh + ddzz),
-                spf) + dst * mask
-            return out, (dpn, dqn)
-
-        def one_step(carry, s_t):
-            p_prev, p, q_prev, q = carry
-            p_next, q_next = step_core(p_prev, p, q_prev, q, c2dt2, ah, av,
-                                       s_t, spz, spy, spx, inv_dx2,
-                                       src_idx, amp)
-            rec = p_next.reshape(-1)[rcv_idx]
-            return (p, p_next, q, q_next), rec
-
-        # pair two steps per scan iteration: every carry slot is written
-        # fresh, so the kernel's in-place aliasing donates with no rotation
-        # copies (same finding as the isotropic fused step; measured there)
-        def step(carry, s_pair):
-            c1, r1 = one_step(carry, s_pair[0])
-            c2_, r2 = one_step(c1, s_pair[1])
-            return c2_, jnp.stack((r1, r2))
-
-        nt = int(src_wavelet.shape[0])
-        pad = nt % 2
-        wav = src_wavelet
-        if pad:
-            wav = jnp.concatenate(
-                [wav, jnp.zeros((1,) + wav.shape[1:], wav.dtype)])
-        xs = wav.reshape(((nt + pad) // 2, 2) + wav.shape[1:])
-        zero = (src_idx * 0).astype(c.dtype)
-        u0 = jnp.zeros(shape, c.dtype) + zero
-        (_, _, _, _), traces = _scan_remat(
-            step, (u0, u0, u0, u0), xs, remat_blocks)
-        return traces.reshape((nt + pad,) + traces.shape[2:])[:nt]
 
     def step(carry, s_t):
         p_prev, p, q_prev, q = carry
@@ -2543,8 +1896,7 @@ def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx,
 
 def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *,
                         dt, dx, sponge, order: int = 2, store: str = "int8",
-                        fused=None, og=None, ig=None,
-                        wavefield_sharding=None):
+                        og=None, ig=None, wavefield_sharding=None):
     """Adjoint-state gradient ``(∂F/∂(c,ε,δ))ᵀ dd`` for the coupled
     pseudo-acoustic VTI system with a STORED (encoded) two-field forward
     history — the anisotropic sibling of :func:`_adjoint_stored`. The
@@ -2560,13 +1912,9 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *,
 
     (p_k, q_k read back from the stored history; C = c²dt²,
     ah = 1+2ε, av = √(1+2δ); the model-block gradients follow by the
-    outer chain gc = 2c·dt²·gC, gε = 2·gah, gδ = gav/av).
-
-    ``fused`` runs the forward history sweep on the fused Pallas VTI
-    kernel (``None`` = auto on TPU); the reverse sweep is XLA (the fused
-    anisotropic reverse kernel is future work — this already removes the
-    rematerialization recompute and stores the two-field history at the
-    encoded width). Returns the (gc, gε, gδ) triple."""
+    outer chain gc = 2c·dt²·gC, gε = 2·gah, gδ = gav/av). No
+    rematerialization recompute; the two-field history is stored at the
+    encoded width. Returns the (gc, gε, gδ) triple."""
     shape = c.shape
     nd = c.ndim
     dtype = c.dtype
@@ -2607,88 +1955,21 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *,
     nt = int(src_wavelet.shape[0])
 
     # ---- forward history sweep (both fields encoded per step) ----------
-    # static-Q friction (og/ig fields) and grid sharding ride the XLA
-    # sweeps: the fused kernels take neither
-    can_fuse = (og is None and wavefield_sharding is None and iota_src
-                and isinstance(sponge, tuple) and len(shape) == 3)
-    if can_fuse:
-        from .pallas_wave import fits_vti_adjoint_pallas, fits_vti_pallas
+    def fstep(carry, s_t):
+        p_prev, p, q_prev, q = carry
+        lh = Lh(p)
+        dzz = Dz(q)
+        if og is None:
+            e_p = 2.0 * p - p_prev + C * (ah * lh + av * dzz)
+            e_q = 2.0 * q - q_prev + C * (av * lh + dzz)
+        else:
+            e_p = (2.0 * p - og * p_prev + C * (ah * lh + av * dzz)) * ig
+            e_q = (2.0 * q - og * q_prev + C * (av * lh + dzz)) * ig
+        p_next = _mul_sponge(e_p, sponge) + s_t * mask()
+        q_next = _mul_sponge(e_q, sponge) + s_t * mask()
+        return (p, p_next, q, q_next), (enc(p), enc(q))
 
-        can_fuse = (fits_vti_pallas(shape, dtype, order)
-                    and fits_vti_adjoint_pallas(shape, dtype, order, store))
-    if fused is None:
-        fused = can_fuse and jax.default_backend() != "cpu"
-    elif fused and not can_fuse:
-        raise ValueError(
-            "fused VTI stored-adjoint requires a 3-D f32 grid with "
-            "lane/sublane-aligned minor dims (the history dtype tightens "
-            "the sublane requirement: H%16==0 for bf16, H%32==0 for int8)"
-        )
-
-    if fused:
-        from .pallas_wave import fused_vti_hist_step
-
-        interp = jax.default_backend() == "cpu"
-        spz = sponge[0][:, 0, 0]
-        spy = sponge[1][0]
-        spx = sponge[2][0]
-
-        # in-kernel two-field history encoding with one-step-deferred
-        # scales (see _adjoint_stored's fused forward sweep: scales and
-        # snapshots stay bit-identical to the XLA encode, and the ~4.5
-        # encode grid touches per step disappear)
-        one_ = jnp.asarray(1.0, dtype)
-        floor_ = jnp.asarray(1e-30, dtype)
-        is_i8 = store == "int8"
-
-        def fwd_one(carry, s_t):
-            p_prev, p, q_prev, q, sc_p, sc_q = carry
-            qfp = jnp.asarray(127.0, dtype) / sc_p if is_i8 else one_
-            qfq = jnp.asarray(127.0, dtype) / sc_q if is_i8 else one_
-            p_next, q_next, p_enc, q_enc, pmax, qmax = fused_vti_hist_step(
-                p_prev, p, q_prev, q, C, ah, av, spz, spy, spx,
-                inv_dx2, s_t, src_idx, amp, qfp, qfq,
-                store=store, order=order, interpret=interp)
-            sc_pn = jnp.maximum(jnp.max(pmax), floor_)
-            sc_qn = jnp.maximum(jnp.max(qmax), floor_)
-            ys = ((p_enc, sc_p if is_i8 else one_),
-                  (q_enc, sc_q if is_i8 else one_))
-            return (p, p_next, q, q_next, sc_pn, sc_qn), ys
-
-        def fwd_pair(carry, s_pair):
-            c1, h1 = fwd_one(carry, s_pair[0])
-            c2_, h2 = fwd_one(c1, s_pair[1])
-            return c2_, jax.tree_util.tree_map(
-                lambda a, b: jnp.stack((a, b)), h1, h2)
-
-        padf = nt % 2
-        wav = src_wavelet
-        if padf:
-            wav = jnp.concatenate(
-                [wav, jnp.zeros((1,) + wav.shape[1:], wav.dtype)])
-        xsf = wav.reshape(((nt + padf) // 2, 2) + wav.shape[1:])
-        (_, _, _, _, _, _), hists = lax.scan(
-            fwd_pair, (u0, u0, u0, u0, floor_, floor_), xsf)
-        hists = jax.tree_util.tree_map(
-            lambda a: a.reshape((nt + padf,) + a.shape[2:])[:nt], hists)
-    else:
-        def fstep(carry, s_t):
-            p_prev, p, q_prev, q = carry
-            lh = Lh(p)
-            dzz = Dz(q)
-            if og is None:
-                e_p = 2.0 * p - p_prev + C * (ah * lh + av * dzz)
-                e_q = 2.0 * q - q_prev + C * (av * lh + dzz)
-            else:
-                e_p = (2.0 * p - og * p_prev
-                       + C * (ah * lh + av * dzz)) * ig
-                e_q = (2.0 * q - og * q_prev + C * (av * lh + dzz)) * ig
-            p_next = _mul_sponge(e_p, sponge) + s_t * mask()
-            q_next = _mul_sponge(e_q, sponge) + s_t * mask()
-            return (p, p_next, q, q_next), (enc(p), enc(q))
-
-        (_, _, _, _), hists = lax.scan(fstep, (u0, u0, u0, u0),
-                                       src_wavelet)
+    (_, _, _, _), hists = lax.scan(fstep, (u0, u0, u0, u0), src_wavelet)
     (ph, ps), (qh, qs) = hists
 
     def inject(row):
@@ -2698,60 +1979,6 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *,
     dd = dd.astype(dtype)
     dd_shift = jnp.concatenate(
         [jnp.zeros((1,) + dd.shape[1:], dtype), dd[:-1]], axis=0)
-
-    if fused:
-        # ---- reverse sweep on the fused VTI adjoint kernel. The scan
-        # carries (ap₁, aq₁, ap₂, aq₂, gC, gah, gav) and is paired like
-        # the isotropic reverse: both adjoint-field pairs are written
-        # fresh each iteration, so the kernel's ap₂→ap / aq₂→aq /
-        # accumulator aliasing donates cleanly. Front-pad odd nt with a
-        # dummy k=-1 step (zero history, zero residual: accumulators
-        # untouched, its a_{-1} outputs discarded).
-        from .pallas_wave import fused_vti_adjoint_step
-
-        def adj_one(ap1, aq1, ap2, aq2, gC, gah, gav, pq, psv, qq, qsv, g):
-            one = jnp.asarray(1.0, dtype)
-            psc = (psv / 127.0) if store == "int8" else one
-            qsc = (qsv / 127.0) if store == "int8" else one
-            ap_core, aq_core, gC, gah, gav = fused_vti_adjoint_step(
-                ap1, aq1, ap2, aq2, gC, gah, gav, C, av, ah, pq, qq,
-                psc, qsc, inv_dx2, spz, spy, spx,
-                order=order, interpret=interp)
-            ap_k = ap_core.reshape(-1).at[rcv_idx].add(g).reshape(shape)
-            return ap_k, aq_core, gC, gah, gav
-
-        def bpair(carry, xs):
-            ap1, aq1, ap2, aq2, gC, gah, gav = carry
-            p2, ps2, q2, qs2, g2 = xs
-            ap_hi, aq_hi, gC, gah, gav = adj_one(
-                ap1, aq1, ap2, aq2, gC, gah, gav,
-                p2[1], ps2[1], q2[1], qs2[1], g2[1])
-            ap_lo, aq_lo, gC, gah, gav = adj_one(
-                ap_hi, aq_hi, ap1, aq1, gC, gah, gav,
-                p2[0], ps2[0], q2[0], qs2[0], g2[0])
-            return (ap_lo, aq_lo, ap_hi, aq_hi, gC, gah, gav), None
-
-        padr = nt % 2
-        ph_r, ps_r, qh_r, qs_r, grec_r = ph, ps, qh, qs, dd_shift
-        if padr:
-            ph_r = jnp.concatenate([jnp.zeros_like(ph[:1]), ph])
-            ps_r = jnp.concatenate([jnp.ones_like(ps[:1]), ps])
-            qh_r = jnp.concatenate([jnp.zeros_like(qh[:1]), qh])
-            qs_r = jnp.concatenate([jnp.ones_like(qs[:1]), qs])
-            grec_r = jnp.concatenate(
-                [jnp.zeros_like(dd_shift[:1]), dd_shift])
-        nt2 = nt + padr
-        xsr = tuple(
-            a.reshape((nt2 // 2, 2) + a.shape[1:])
-            for a in (ph_r, ps_r, qh_r, qs_r, grec_r))
-        z0 = jnp.zeros(shape, dtype) + zero
-        carry0 = (inject(dd[-1]), z0, z0, z0, z0, z0, z0)
-        (_, _, _, _, gC, gah, gav), _ = lax.scan(
-            bpair, carry0, xsr, reverse=True)
-        gc = gC * (2.0 * c) * jnp.asarray(dt * dt, dtype)
-        geps = 2.0 * gah
-        gdelta = gav / av
-        return gc, geps, gdelta
 
     def bstep(carry, xs):
         ap1, aq1, ebp1, ebq1, gC, gah, gav = carry
@@ -2801,7 +2028,6 @@ def vti_wave_propagator(
     sponge_width: int = 12,
     space_order: int = 2,
     remat_blocks: int = 1,
-    fused=None,
     dtrec: Optional[float] = None,
     q=None,
     f0: Optional[float] = None,
@@ -2823,50 +2049,24 @@ def vti_wave_propagator(
     default the source ``freq``) — the attenuating "DenQ" variant of the
     reference family's VTI propagators. Static: Q is a modeling parameter,
     not part of the inversion domain (the jet still differentiates through
-    (c, ε, δ)); a Q'ed propagator rides the XLA step (the fused kernel
-    takes no friction fields).
+    (c, ε, δ)).
 
     ``store_adjoint`` ∈ {None, "f32", "bf16", "int8"} switches the
     adjoint from autodiff to the hand-derived STORED two-field-history
     sweep (:func:`_adjoint_stored_vti`) — the anisotropic production
-    imaging path: no rematerialization recompute, history encoded
-    IN-KERNEL at the stored width, and on TPU BOTH sweeps ride fused
-    Pallas kernels (the five-DMA-ring reverse kernel
-    :func:`pallas_wave.fused_vti_adjoint_step`; 256³ int8 gradient
-    3130 µs/time-step = 2.8× autodiff). Composes with ``q=`` (the
-    transposed recurrence carries the og/ig friction factors; XLA path).
+    imaging path: no rematerialization recompute, history at the stored
+    width. Composes with ``q=`` (the transposed recurrence carries the
+    og/ig friction factors).
 
     ``wavefield_sharding`` (a ``NamedSharding``) grid-shards both coupled
     scan-carry fields and the stored two-field history over a mesh axis
-    (the model-larger-than-one-chip axis); rides the XLA step."""
+    (the model-larger-than-one-device axis)."""
     import math
 
     from ..core.blockspace import BlockSpace
 
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
-    if fused and wavefield_sharding is not None:
-        raise ValueError(
-            "wavefield_sharding rides the XLA step; fused=True is "
-            "incompatible (a Pallas call cannot be GSPMD-partitioned)"
-        )
-    if fused:
-        from .pallas_wave import fits_vti_adjoint_pallas, fits_vti_pallas
-
-        if q is not None:
-            raise ValueError("fused VTI step does not support static Q")
-        if not fits_vti_pallas(grid_shape, dtype, space_order):
-            raise ValueError(
-                "fused VTI step requires a 3-D f32 grid with "
-                "lane/sublane-aligned minor dims (W%128==0, H%8==0)"
-            )
-        if store_adjoint is not None and not fits_vti_adjoint_pallas(
-                grid_shape, dtype, space_order, store_adjoint):
-            raise ValueError(
-                "fused VTI stored-adjoint infeasible for this config "
-                "(history dtype tightens the sublane requirement: "
-                "H%16==0 for bf16, H%32==0 for int8)"
-            )
     og = ig = None
     if q is not None:
         g = (math.pi * float(freq if f0 is None else f0) * dt) \
@@ -2889,7 +2089,7 @@ def vti_wave_propagator(
             m.getblock(0), m.getblock(1), m.getblock(2),
             state["wavelet"], state["src_idx"], state["rcv_idx"],
             dt=dt, dx=dx, sponge=state["sponge"], order=space_order,
-            remat_blocks=remat_blocks, fused=fused, og=og, ig=ig,
+            remat_blocks=remat_blocks, og=og, ig=ig,
             wavefield_sharding=wavefield_sharding,
         )
         return _resample(traces) if _resample is not None else traces
@@ -2920,9 +2120,6 @@ def vti_wave_propagator(
                 state["wavelet"], state["src_idx"], state["rcv_idx"],
                 dt=dt, dx=dx, sponge=state["sponge"], order=space_order,
                 store=store_adjoint,
-                fused=False if (q is not None
-                                or wavefield_sharding is not None)
-                else fused,
                 og=og, ig=ig, wavefield_sharding=wavefield_sharding,
             )
             return (dom.zeros().setblock(0, gc).setblock(1, geps)
@@ -3011,7 +2208,7 @@ def _propagate_tti(c, eps, delta, theta, src_wavelet, src_idx, rcv_idx, *,
 
 def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx,
                      rcv_idx, *, dt, dx, sponge, order: int = 2,
-                     remat_blocks: int = 1, fused=None, og=None, ig=None,
+                     remat_blocks: int = 1, og=None, ig=None,
                      coeff_dtype=None, wavefield_sharding=None):
     """3-D tilted-TI pseudo-acoustics with azimuth. The symmetry axis is
     the unit vector ``n = (cosθ, sinθ·cosφ, sinθ·sinφ)`` in (z, y, x); the
@@ -3027,12 +2224,10 @@ def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx,
     ``Prop3DAcoTTIDenQ`` parameterization.
 
     ``coeff_dtype=jnp.bfloat16`` rounds the five smooth coefficient fields
-    (1+2ε, √(1+2δ), and the symmetry-axis components) to bf16 — BOTH paths
-    then use the same rounded-and-upcast values (so fused-vs-XLA agreement
-    is unchanged), and the fused kernel streams them at half width: 2.5
-    fewer f32 grid touches per step AND a T=1→2 slab tile at 256³. ~0.4%
-    relative rounding on the anisotropy coefficients (θ=0 stays EXACT:
-    bf16 represents 0 and 1 exactly, so the VTI reduction pin holds)."""
+    (1+2ε, √(1+2δ), and the symmetry-axis components) to bf16 values:
+    ~0.4% relative rounding on the anisotropy coefficients (θ=0 stays
+    EXACT: bf16 represents 0 and 1 exactly, so the VTI reduction pin
+    holds)."""
     shape = c.shape
     c2dt2 = (c * c) * (dt * dt)
     inv_dx2 = jnp.asarray(1.0 / (dx * dx), c.dtype)
@@ -3043,26 +2238,18 @@ def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx,
     st = jnp.sin(theta)
     ny = st * jnp.cos(phi)
     nx = st * jnp.sin(phi)
-    coeff16 = (coeff_dtype is not None
-               and jnp.dtype(coeff_dtype) == jnp.bfloat16)
-    kc = None
-    if coeff16:
+    if coeff_dtype is not None and jnp.dtype(coeff_dtype) == jnp.bfloat16:
         # Straight-through rounding: the PRIMAL uses the bf16-rounded
-        # coefficients (what the kernel streams), but tangents flow in
-        # full f32 — differentiating through the rounding cast itself
-        # would truncate tangents/cotangents to bf16 and break the
-        # dot-product gate at ~1e-3. The rounding is lax.reduce_precision
-        # (bf16 = 8 exponent / 7 mantissa bits), NOT an astype round-trip:
-        # XLA under --xla_allow_excess_precision (set on the TPU backend)
-        # elides f32→bf16→f32 convert pairs, which would silently leave
-        # the XLA reference path UNROUNDED while the kernel streams real
-        # bf16 (measured: 6.5e-3 fused-vs-XLA divergence on TPU until
-        # this was switched).
+        # coefficients, but tangents flow in full f32 — differentiating
+        # through the rounding cast itself would truncate tangents/
+        # cotangents to bf16 and break the dot-product gate at ~1e-3. The
+        # rounding is lax.reduce_precision (bf16 = 8 exponent / 7 mantissa
+        # bits), NOT an astype round-trip: XLA under
+        # --xla_allow_excess_precision (on by default, the GPU backend
+        # included) may elide f32→bf16→f32 convert pairs and silently
+        # leave the coefficients unrounded.
         def _r16(x):
             return lax.reduce_precision(lax.stop_gradient(x), 8, 7)
-
-        kc = tuple(_r16(x).astype(jnp.bfloat16)   # exact: value is already
-                   for x in (ah, av, nz, ny, nx))  # bf16-representable
 
         def _st(x):
             return x + lax.stop_gradient(_r16(x) - x)
@@ -3082,21 +2269,6 @@ def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx,
             .reshape(shape)
         )
 
-    can_fuse = (og is None and wavefield_sharding is None and iota_src
-                and isinstance(sponge, tuple) and len(shape) == 3)
-    if can_fuse:
-        from .pallas_wave import fits_tti_pallas
-
-        can_fuse = fits_tti_pallas(shape, c.dtype, order,
-                                   2 if coeff16 else 4)
-    if fused is None:
-        fused = can_fuse and jax.default_backend() != "cpu"
-    elif fused and not can_fuse:
-        raise ValueError(
-            "fused TTI step requires a 3-D f32 grid with aligned minor "
-            "dims (and no static-Q friction)"
-        )
-
     def _dij(u, i, j):
         return _d1_axis(_d1_axis(u, i, inv_dx, order), j, inv_dx, order)
 
@@ -3112,111 +2284,6 @@ def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx,
         H = ((1.0 - czz) * uzz + (1.0 - cyy) * uyy + (1.0 - cxx) * uxx
              - czy * uzy - czx * uzx - cyx * uyx)
         return H, V
-
-    if fused:
-        from .pallas_wave import fused_tti_step
-
-        interp = jax.default_backend() == "cpu"
-        spz = sponge[0][:, 0, 0]
-        spy = sponge[1][0]
-        spx = sponge[2][0]
-
-        # every kernel/rule array is an explicit argument — see the iso
-        # fused branch for why (rule closures over traced state leak
-        # through the remat checkpoint on TPU). In bf16-coefficient mode
-        # the kernel streams the half-width fields (ka..kx args); the f32
-        # args ah_..nx_ are their exact upcasts, so the jvp rule
-        # differentiates the same values.
-        @jax.custom_jvp
-        def step_core(p_prev, p, q_prev, q, c2, ah_, av_, nz_, ny_, nx_,
-                      s_t, ka, kb, kz, ky, kx, spz_, spy_, spx_,
-                      idx2, idx1, sidx, amp_):
-            return fused_tti_step(
-                p_prev, p, q_prev, q, c2, ka, kb, kz, ky, kx,
-                spz_, spy_, spx_, idx2, idx1, s_t, sidx, amp_,
-                order=order, interpret=interp,
-            )
-
-        @step_core.defjvp
-        def _step_jvp(primals, tangents):
-            out = step_core(*primals)
-            (_pp, _p, _qp, _q, _c2, _ah, _av, _nz, _ny, _nx, _st,
-             _ka, _kb, _kz, _ky, _kx, spz_, spy_, spx_,
-             idx2, idx1, sidx, amp_) = primals
-            spf = (spz_.reshape(-1, 1, 1), spy_.reshape(1, -1, 1),
-                   spx_.reshape(1, 1, -1))
-            mask = _iota_src_mask(shape, sidx, amp_)
-
-            def _dij_a(u, i, j):
-                return _d1_axis(_d1_axis(u, i, idx1, order), j, idx1,
-                                order)
-
-            def xla_step(pp, p, qp, q, c2, ah_, av_, nz_, ny_, nx_, s_t):
-                # the EXACT unfused tree with the coefficient fields as
-                # function of (nz, ny, nx) so tangents flow through θ/φ
-                czz_, cyy_, cxx_ = nz_ * nz_, ny_ * ny_, nx_ * nx_
-                czy_ = 2.0 * nz_ * ny_
-                czx_ = 2.0 * nz_ * nx_
-                cyx_ = 2.0 * ny_ * nx_
-
-                def HV(u):
-                    uzz = _d2_axis(u, 0, idx2, order)
-                    uyy = _d2_axis(u, 1, idx2, order)
-                    uxx = _d2_axis(u, 2, idx2, order)
-                    uzy = _dij_a(u, 0, 1)
-                    uzx = _dij_a(u, 0, 2)
-                    uyx = _dij_a(u, 1, 2)
-                    V = (czz_ * uzz + cyy_ * uyy + cxx_ * uxx
-                         + czy_ * uzy + czx_ * uzx + cyx_ * uyx)
-                    Hh = ((1.0 - czz_) * uzz + (1.0 - cyy_) * uyy
-                          + (1.0 - cxx_) * uxx
-                          - czy_ * uzy - czx_ * uzx - cyx_ * uyx)
-                    return Hh, V
-
-                Hp, _ = HV(p)
-                _, Vq = HV(q)
-                pn = _mul_sponge(2.0 * p - pp
-                                 + c2 * (ah_ * Hp + av_ * Vq), spf) \
-                    + s_t * mask
-                qn = _mul_sponge(2.0 * q - qp
-                                 + c2 * (av_ * Hp + Vq), spf) \
-                    + s_t * mask
-                return pn, qn
-
-            _, dout = jax.jvp(xla_step, primals[:11], tangents[:11])
-            return out, dout
-
-        kc5 = kc if kc is not None else (ah, av, nz, ny, nx)
-
-        def one_step(carry, s_t):
-            p_prev, p, q_prev, q = carry
-            p_next, q_next = step_core(p_prev, p, q_prev, q, c2dt2, ah, av,
-                                       nz, ny, nx, s_t, *kc5,
-                                       spz, spy, spx, inv_dx2, inv_dx,
-                                       src_idx, amp)
-            rec = p_next.reshape(-1)[rcv_idx]
-            return (p, p_next, q, q_next), rec
-
-        # pair two steps per scan iteration so every carry slot is written
-        # fresh and the kernel's in-place aliasing donates with no rotation
-        # copies (same finding as the isotropic/VTI fused steps)
-        def step(carry, s_pair):
-            c1, r1 = one_step(carry, s_pair[0])
-            c2_, r2 = one_step(c1, s_pair[1])
-            return c2_, jnp.stack((r1, r2))
-
-        nt = int(src_wavelet.shape[0])
-        pad = nt % 2
-        wav = src_wavelet
-        if pad:
-            wav = jnp.concatenate(
-                [wav, jnp.zeros((1,) + wav.shape[1:], wav.dtype)])
-        xs = wav.reshape(((nt + pad) // 2, 2) + wav.shape[1:])
-        zero = (src_idx * 0).astype(c.dtype)
-        u0 = jnp.zeros(shape, c.dtype) + zero
-        (_, _, _, _), traces = _scan_remat(
-            step, (u0, u0, u0, u0), xs, remat_blocks)
-        return traces.reshape((nt + pad,) + traces.shape[2:])[:nt]
 
     def step(carry, s_t):
         p_prev, p, q_prev, q = carry
@@ -3246,7 +2313,7 @@ def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx,
 
 def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet,
                           src_idx, rcv_idx, *, dt, dx, sponge,
-                          order: int = 2, store: str = "int8", fused=None,
+                          order: int = 2, store: str = "int8",
                           coeff_dtype=None, og=None, ig=None,
                           wavefield_sharding=None):
     """Adjoint-state gradient ``(∂F/∂(c,ε,δ,θ,φ))ᵀ dd`` for the 3-D
@@ -3268,8 +2335,7 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet,
     ``δc_d = C·[(av·q_d − ah·p_d)ēp + (q_d − av·p_d)ēq]``), then chain
     through n = (cosθ, sinθcosφ, sinθsinφ) to (gθ, gφ).
 
-    ``fused`` runs the forward history sweep on the fused Pallas TTI
-    kernel; ``coeff_dtype=jnp.bfloat16`` applies the SAME straight-through
+    ``coeff_dtype=jnp.bfloat16`` applies the SAME straight-through
     coefficient rounding as the forward (gradients consistent with the
     rounded primal). Returns (gc, gε, gδ, gθ, gφ)."""
     shape = c.shape
@@ -3281,16 +2347,10 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet,
     st = jnp.sin(theta)
     ny = st * jnp.cos(phi)
     nx = st * jnp.sin(phi)
-    coeff16 = (coeff_dtype is not None
-               and jnp.dtype(coeff_dtype) == jnp.bfloat16)
     av_raw = av  # the δ chain differentiates the UNROUNDED √(1+2δ)
-    kc = None
-    if coeff16:
+    if coeff_dtype is not None and jnp.dtype(coeff_dtype) == jnp.bfloat16:
         def _r16(x):
             return lax.reduce_precision(lax.stop_gradient(x), 8, 7)
-
-        kc = tuple(_r16(x).astype(jnp.bfloat16)
-                   for x in (ah, av, nz, ny, nx))
 
         def _st16(x):
             return x + lax.stop_gradient(_r16(x) - x)
@@ -3347,96 +2407,27 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet,
     if wavefield_sharding is not None:
         u0 = lax.with_sharding_constraint(u0, wavefield_sharding)
 
-    # ---- forward history sweep ----------------------------------------
-    # static-Q friction and grid sharding ride the XLA sweeps (the fused
-    # kernels take neither)
-    can_fuse = (og is None and wavefield_sharding is None
-                and isinstance(sponge, tuple) and len(shape) == 3)
-    if can_fuse:
-        from .pallas_wave import fits_tti_adjoint_pallas, fits_tti_pallas
+    # ---- forward history sweep (the TTI stored adjoint is 3-D, so the
+    # source is always the in-register iota mask) -----------------------
+    mask = _iota_src_mask(shape, src_idx, amp)
 
-        can_fuse = (fits_tti_pallas(shape, dtype, order,
-                                    2 if coeff16 else 4)
-                    and fits_tti_adjoint_pallas(shape, dtype, order, store,
-                                                2 if coeff16 else 4))
-    if fused is None:
-        fused = can_fuse and jax.default_backend() != "cpu"
-    elif fused and not can_fuse:
-        raise ValueError(
-            "fused TTI stored-adjoint requires a 3-D f32 grid with "
-            "lane/sublane-aligned minor dims (the history and coefficient "
-            "dtypes tighten the sublane requirement)"
-        )
+    def fstep(carry, s_t):
+        p_prev, p, q_prev, q = carry
+        dp6 = derivs(p)
+        dq6 = derivs(q)
+        if og is None:
+            e_p = 2.0 * p - p_prev + C * (ah * H_of(dp6) + av * V_of(dq6))
+            e_q = 2.0 * q - q_prev + C * (av * H_of(dp6) + V_of(dq6))
+        else:
+            e_p = (2.0 * p - og * p_prev
+                   + C * (ah * H_of(dp6) + av * V_of(dq6))) * ig
+            e_q = (2.0 * q - og * q_prev
+                   + C * (av * H_of(dp6) + V_of(dq6))) * ig
+        p_next = _mul_sponge(e_p, sponge) + s_t * mask
+        q_next = _mul_sponge(e_q, sponge) + s_t * mask
+        return (p, p_next, q, q_next), (enc(p), enc(q))
 
-    if fused:
-        from .pallas_wave import fused_tti_hist_step
-
-        interp = jax.default_backend() == "cpu"
-        spz = sponge[0][:, 0, 0]
-        spy = sponge[1][0]
-        spx = sponge[2][0]
-        kc5 = kc if kc is not None else (ah, av, nz, ny, nx)
-
-        # in-kernel two-field history encoding with one-step-deferred
-        # scales (bit-identical to the XLA encode; see _adjoint_stored)
-        one_ = jnp.asarray(1.0, dtype)
-        floor_ = jnp.asarray(1e-30, dtype)
-        is_i8 = store == "int8"
-
-        def fwd_one(carry, s_t):
-            p_prev, p, q_prev, q, sc_p, sc_q = carry
-            qfp = jnp.asarray(127.0, dtype) / sc_p if is_i8 else one_
-            qfq = jnp.asarray(127.0, dtype) / sc_q if is_i8 else one_
-            p_next, q_next, p_enc, q_enc, pmax, qmax = fused_tti_hist_step(
-                p_prev, p, q_prev, q, C, *kc5, spz, spy, spx,
-                inv_dx2, inv_dx, s_t, src_idx, amp, qfp, qfq,
-                store=store, order=order, interpret=interp)
-            sc_pn = jnp.maximum(jnp.max(pmax), floor_)
-            sc_qn = jnp.maximum(jnp.max(qmax), floor_)
-            ys = ((p_enc, sc_p if is_i8 else one_),
-                  (q_enc, sc_q if is_i8 else one_))
-            return (p, p_next, q, q_next, sc_pn, sc_qn), ys
-
-        def fwd_pair(carry, s_pair):
-            c1, h1 = fwd_one(carry, s_pair[0])
-            c2_, h2 = fwd_one(c1, s_pair[1])
-            return c2_, jax.tree_util.tree_map(
-                lambda a, b: jnp.stack((a, b)), h1, h2)
-
-        padf = nt % 2
-        wav = src_wavelet
-        if padf:
-            wav = jnp.concatenate(
-                [wav, jnp.zeros((1,) + wav.shape[1:], wav.dtype)])
-        xsf = wav.reshape(((nt + padf) // 2, 2) + wav.shape[1:])
-        (_, _, _, _, _, _), hists = lax.scan(
-            fwd_pair, (u0, u0, u0, u0, floor_, floor_), xsf)
-        hists = jax.tree_util.tree_map(
-            lambda a: a.reshape((nt + padf,) + a.shape[2:])[:nt], hists)
-    else:
-        def mask():
-            return _iota_src_mask(shape, src_idx, amp) \
-                if c.ndim >= 3 else None
-
-        def fstep(carry, s_t):
-            p_prev, p, q_prev, q = carry
-            dp6 = derivs(p)
-            dq6 = derivs(q)
-            if og is None:
-                e_p = (2.0 * p - p_prev
-                       + C * (ah * H_of(dp6) + av * V_of(dq6)))
-                e_q = 2.0 * q - q_prev + C * (av * H_of(dp6) + V_of(dq6))
-            else:
-                e_p = (2.0 * p - og * p_prev
-                       + C * (ah * H_of(dp6) + av * V_of(dq6))) * ig
-                e_q = (2.0 * q - og * q_prev
-                       + C * (av * H_of(dp6) + V_of(dq6))) * ig
-            p_next = _mul_sponge(e_p, sponge) + s_t * mask()
-            q_next = _mul_sponge(e_q, sponge) + s_t * mask()
-            return (p, p_next, q, q_next), (enc(p), enc(q))
-
-        (_, _, _, _), hists = lax.scan(fstep, (u0, u0, u0, u0),
-                                       src_wavelet)
+    (_, _, _, _), hists = lax.scan(fstep, (u0, u0, u0, u0), src_wavelet)
     (ph, ps), (qh, qs) = hists
 
     def inject(row):
@@ -3446,62 +2437,6 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet,
     dd = dd.astype(dtype)
     dd_shift = jnp.concatenate(
         [jnp.zeros((1,) + dd.shape[1:], dtype), dd[:-1]], axis=0)
-
-    if fused:
-        # ---- reverse sweep on the fused TTI adjoint kernel (paired like
-        # the isotropic/VTI reverse so every aliased slot is written
-        # fresh; odd nt front-pads a no-op k=-1 step).
-        from .pallas_wave import fused_tti_adjoint_step
-
-        kc5r = kc if kc is not None else (ah, av, nz, ny, nx)
-
-        def adj_one(ap1, aq1, ap2, aq2, accs, pq, psv, qq, qsv, g):
-            one = jnp.asarray(1.0, dtype)
-            psc = (psv / 127.0) if store == "int8" else one
-            qsc = (qsv / 127.0) if store == "int8" else one
-            ap_core, aq_core, *accs = fused_tti_adjoint_step(
-                ap1, aq1, ap2, aq2, *accs, C, *kc5r, pq, qq,
-                psc, qsc, inv_dx2, inv_dx, spz, spy, spx,
-                order=order, interpret=interp)
-            ap_k = ap_core.reshape(-1).at[rcv_idx].add(g).reshape(shape)
-            return ap_k, aq_core, tuple(accs)
-
-        def bpair(carry, xs):
-            ap1, aq1, ap2, aq2, accs = carry
-            p2, ps2, q2, qs2, g2 = xs
-            ap_hi, aq_hi, accs = adj_one(
-                ap1, aq1, ap2, aq2, accs,
-                p2[1], ps2[1], q2[1], qs2[1], g2[1])
-            ap_lo, aq_lo, accs = adj_one(
-                ap_hi, aq_hi, ap1, aq1, accs,
-                p2[0], ps2[0], q2[0], qs2[0], g2[0])
-            return (ap_lo, aq_lo, ap_hi, aq_hi, accs), None
-
-        padr = nt % 2
-        ph_r, ps_r, qh_r, qs_r, grec_r = ph, ps, qh, qs, dd_shift
-        if padr:
-            ph_r = jnp.concatenate([jnp.zeros_like(ph[:1]), ph])
-            ps_r = jnp.concatenate([jnp.ones_like(ps[:1]), ps])
-            qh_r = jnp.concatenate([jnp.zeros_like(qh[:1]), qh])
-            qs_r = jnp.concatenate([jnp.ones_like(qs[:1]), qs])
-            grec_r = jnp.concatenate(
-                [jnp.zeros_like(dd_shift[:1]), dd_shift])
-        nt2 = nt + padr
-        xsr = tuple(
-            a.reshape((nt2 // 2, 2) + a.shape[1:])
-            for a in (ph_r, ps_r, qh_r, qs_r, grec_r))
-        z0 = jnp.zeros(shape, dtype) + zero
-        carry0 = (inject(dd[-1]), z0, z0, z0, (z0,) * 6)
-        (_, _, _, _, accs), _ = lax.scan(bpair, carry0, xsr, reverse=True)
-        gC, gah_a, gav_a, gnz_a, gny_a, gnx_a = accs
-        gc = gC * (2.0 * c) * jnp.asarray(dt * dt, dtype)
-        geps = 2.0 * gah_a
-        gdelta = gav_a / av_raw
-        cth, sth = jnp.cos(theta), jnp.sin(theta)
-        cph, sph = jnp.cos(phi), jnp.sin(phi)
-        gtheta = -sth * gnz_a + (cth * cph) * gny_a + (cth * sph) * gnx_a
-        gphi = (-sth * sph) * gny_a + (sth * cph) * gnx_a
-        return gc, geps, gdelta, gtheta, gphi
 
     def bstep(carry, xs):
         ap1, aq1, ebp1, ebq1, gC, gah, gav, gnz, gny, gnx = carry
@@ -3535,10 +2470,8 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet,
         ebp1s = ebp1 if og is None else og * ebp1
         ebq1s = ebq1 if og is None else og * ebq1
         # HT/VT are linear: one application on the summed weight field
-        # instead of two (the reverse is COMPUTE-bound — the transposed
-        # operators are where its arithmetic lives; r5 measured the
-        # fused kernel 3608 µs/step with two applications each). The
-        # fused kernel matches THIS tree.
+        # instead of two (the transposed operators are where the reverse
+        # step's arithmetic lives)
         ap = (2.0 * ebp + HT(C * ah * ebp + C * av * ebq)
               - ebp1s) + inject(grec_prev)
         aq = (2.0 * ebq + VT(C * av * ebp + C * ebq)) - ebq1s
@@ -3571,7 +2504,6 @@ def tti_wave_propagator(
     sponge_width: int = 12,
     space_order: int = 2,
     remat_blocks: int = 1,
-    fused=None,
     dtrec: Optional[float] = None,
     q=None,
     f0: Optional[float] = None,
@@ -3585,8 +2517,8 @@ def tti_wave_propagator(
     ``store_adjoint`` ∈ {None, "f32", "bf16", "int8"} (3-D only) switches
     the adjoint from autodiff to the hand-derived STORED two-field-history
     sweep (:func:`_adjoint_stored_tti3d`): no rematerialization recompute,
-    history at the encoded width, forward sweep on the fused kernel, full
-    (gc, gε, gδ, gθ, gφ) tuple in one reverse pass.
+    history at the encoded width, full (gc, gε, gδ, gθ, gφ) tuple in one
+    reverse pass.
 
     2-D: four-parameter ``F: (c, ε, δ, θ) → traces`` (tilt θ in the x-z
     plane). 3-D: five-parameter ``F: (c, ε, δ, θ, φ) → traces`` with
@@ -3601,22 +2533,16 @@ def tti_wave_propagator(
     ``q=`` adds STATIC Kosloff constant-Q friction to both coupled fields
     (scalar or grid-shaped; reference frequency ``f0`` defaults to the
     source ``freq``) — completing the parameter set of the reference
-    family's ``Prop*AcoTTIDenQ`` production propagators. Static Q rides
-    the XLA step.
+    family's ``Prop*AcoTTIDenQ`` production propagators.
 
     ``coeff_dtype=jnp.bfloat16`` (3-D only) rounds the five smooth
-    coefficient fields to bf16 for both paths and streams them at half
-    width through the fused kernel — the production fast mode (see
-    :func:`_propagate_tti3d`; ~0.4% coefficient rounding, θ=0 reduction
-    stays exact).
+    coefficient fields to bf16 values in the forward and the stored
+    adjoint (see :func:`_propagate_tti3d`; ~0.4% coefficient rounding,
+    θ=0 reduction stays exact).
 
-    On TPU the stored adjoint's BOTH sweeps ride fused Pallas kernels
-    (the ten-DMA-ring reverse kernel
-    :func:`pallas_wave.fused_tti_adjoint_step`; 256³ int8 gradient
-    5782 µs/time-step = 4.2× autodiff). ``store_adjoint`` composes with
-    ``q=`` (og/ig factors in the transposed recurrence; XLA path).
-    ``wavefield_sharding`` grid-shards the coupled fields and stored
-    history over a mesh axis (3-D only; rides the XLA step)."""
+    ``store_adjoint`` composes with ``q=`` (og/ig factors in the
+    transposed recurrence). ``wavefield_sharding`` grid-shards the coupled
+    fields and stored history over a mesh axis (3-D only)."""
     import math
 
     from ..core.blockspace import BlockSpace
@@ -3632,34 +2558,8 @@ def tti_wave_propagator(
             raise ValueError("coeff_dtype must be float32 or bfloat16")
         if not three_d and jnp.dtype(coeff_dtype) == jnp.bfloat16:
             raise ValueError("bf16 coefficient mode is 3-D only")
-    coeff_isz = (2 if coeff_dtype is not None
-                 and jnp.dtype(coeff_dtype) == jnp.bfloat16 else 4)
-    if fused and wavefield_sharding is not None:
-        raise ValueError(
-            "wavefield_sharding rides the XLA step; fused=True is "
-            "incompatible (a Pallas call cannot be GSPMD-partitioned)"
-        )
     if wavefield_sharding is not None and len(grid_shape) != 3:
         raise ValueError("wavefield_sharding on TTI is 3-D only")
-    if fused:
-        from .pallas_wave import fits_tti_adjoint_pallas, fits_tti_pallas
-
-        if q is not None:
-            raise ValueError("fused TTI step does not support static Q")
-        if not three_d or not fits_tti_pallas(grid_shape, dtype,
-                                              space_order, coeff_isz):
-            raise ValueError(
-                "fused TTI step requires a 3-D f32 grid with "
-                "lane/sublane-aligned minor dims (W%128==0, H%8==0; "
-                "H%16==0 for bf16 coefficients)"
-            )
-        if store_adjoint is not None and not fits_tti_adjoint_pallas(
-                grid_shape, dtype, space_order, store_adjoint, coeff_isz):
-            raise ValueError(
-                "fused TTI stored-adjoint infeasible for this config "
-                "(history dtype tightens the sublane requirement: "
-                "H%16==0 for bf16, H%32==0 for int8)"
-            )
     og = ig = None
     if q is not None:
         g = (math.pi * float(freq if f0 is None else f0) * dt) \
@@ -3684,7 +2584,7 @@ def tti_wave_propagator(
                 m.getblock(4),
                 state["wavelet"], state["src_idx"], state["rcv_idx"],
                 dt=dt, dx=dx, sponge=state["sponge"], order=space_order,
-                remat_blocks=remat_blocks, fused=fused, og=og, ig=ig,
+                remat_blocks=remat_blocks, og=og, ig=ig,
                 coeff_dtype=coeff_dtype,
                 wavefield_sharding=wavefield_sharding,
             )
@@ -3729,9 +2629,6 @@ def tti_wave_propagator(
                 state["wavelet"], state["src_idx"], state["rcv_idx"],
                 dt=dt, dx=dx, sponge=state["sponge"], order=space_order,
                 store=store_adjoint,
-                fused=False if (q is not None
-                                or wavefield_sharding is not None)
-                else fused,
                 coeff_dtype=coeff_dtype, og=og, ig=ig,
                 wavefield_sharding=wavefield_sharding,
             )
@@ -3800,7 +2697,6 @@ def multishot_vti_wave_operator(
             bs["wavelet"], bs["src"], bs["rcv"],
             dt=dt, dx=dx, sponge=bs["sponge"], order=space_order,
             remat_blocks=remat_blocks,
-            fused=None if shot_map == "map" else False,
         )
         return _resample(traces) if _resample is not None else traces
 
@@ -3827,7 +2723,6 @@ def multishot_vti_wave_operator(
                 bs["wavelet"], bs["src"], bs["rcv"],
                 dt=dt, dx=dx, sponge=bs["sponge"], order=space_order,
                 store=store_adjoint,
-                fused=None if shot_map == "map" else False,
             )
             out = dom.zeros()
             for b, g in enumerate(g3):
@@ -3903,7 +2798,6 @@ def multishot_tti_wave_operator(
                 m.getblock(4), bs["wavelet"], bs["src"], bs["rcv"],
                 dt=dt, dx=dx, sponge=bs["sponge"], order=space_order,
                 remat_blocks=remat_blocks,
-                fused=None if shot_map == "map" else False,
             )
         else:
             traces = _propagate_tti(
@@ -3942,7 +2836,6 @@ def multishot_tti_wave_operator(
                 bs["wavelet"], bs["src"], bs["rcv"],
                 dt=dt, dx=dx, sponge=bs["sponge"], order=space_order,
                 store=store_adjoint,
-                fused=None if shot_map == "map" else False,
             )
             out = dom.zeros()
             for b, g in enumerate(g5):

@@ -1,11 +1,11 @@
 """Orthonormal discrete wavelet transform operators.
 
-TPU-native counterpart of the ``JopWavelet``-style transform ops that live in
+JAX counterpart of the ``JopWavelet``-style transform ops that live in
 the reference's companion package family (``JetPackTransforms``, named in
 ``/root/reference/docs/src/index.md:14-19``). The reference repo itself ships
 no transforms; this module supplies the capability the ecosystem provides.
 
-Design (TPU-first):
+Design:
 
 * Separable multi-level Mallat DWT with **periodic boundary**, so the
   transform is exactly orthonormal and its adjoint equals its inverse.

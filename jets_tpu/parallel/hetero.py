@@ -3,7 +3,7 @@
 DistributedJets.jl distributes ARBITRARY ``@blockop`` rows over workers
 (``docs/src/index.md:15``); rows there can differ in shape and kernel. XLA
 is SPMD — one program per device — so a literal row-per-worker MPMD port
-would fight the compiler. The TPU-native equivalent implemented here is
+would fight the compiler. The JAX equivalent implemented here is
 **group-stacking**:
 
 1. partition the tall block column into groups of STRUCTURALLY IDENTICAL
@@ -19,8 +19,8 @@ would fight the compiler. The TPU-native equivalent implemented here is
    adjoint sums the groups' (replicated) model contributions.
 
 Heterogeneity therefore lives BETWEEN groups (different shapes/kernels),
-while the hot per-device programs stay uniform — exactly what the MXU/VPU
-want. Groups whose size does not divide the mesh axis stay unsharded and
+while the hot per-device programs stay uniform — exactly what SPMD
+compilation wants. Groups whose size does not divide the mesh axis stay unsharded and
 still compute correctly (single-device stacked).
 """
 from __future__ import annotations

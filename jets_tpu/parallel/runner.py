@@ -2,21 +2,21 @@
 
 The reference family's distribution story (DistributedJets.jl) places block
 rows on remote Julia workers and loads each worker's shot gathers locally.
-The TPU equivalent: one JAX process per host of a pod slice, a global mesh
-over every chip, the stacked block (shot) axis sharded across it, and each
-host reading ONLY the shot gathers whose blocks live on its chips
-(host-local IO; SURVEY §2 ledger / §7 build plan).
+The JAX equivalent: one JAX process per host, a global mesh over every
+device, the stacked block (shot) axis sharded across it, and each host
+reading ONLY the shot gathers whose blocks live on its devices (host-local
+IO; SURVEY §2 ledger / §7 build plan).
 
 Single-host sessions work unchanged: :func:`init_distributed` is a no-op
 without coordinator env vars, and :func:`local_block_range` returns the
 full range.
 
-Typical pod-slice entrypoint::
+Typical multi-host entrypoint::
 
     from jets_tpu.parallel import runner, sharded
 
-    runner.init_distributed()                  # reads env / TPU metadata
-    mesh = sharded.make_block_mesh()           # all chips, "block" axis
+    runner.init_distributed()                  # reads the coordinator env
+    mesh = sharded.make_block_mesh()           # all devices, "block" axis
     lo, hi = runner.local_block_range(nshots, mesh)
     d_local = store.read_shots(lo, hi)         # host-local IO
     d = runner.assemble_global(d_local, (nshots, *shot_shape), mesh)
@@ -46,13 +46,12 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> int:
-    """Initialize multi-process JAX for a pod slice.
+    """Initialize multi-process JAX across hosts.
 
     Arguments default from the standard env vars
-    (``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``);
-    on Cloud TPU VMs with none set, ``jax.distributed.initialize()``
-    auto-detects from TPU metadata. A plain single-process session (no env,
-    no TPU metadata needed) is left untouched. Returns the process index.
+    (``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``).
+    With no coordinator address a single-process session is left
+    untouched. Returns the process index.
     """
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     nproc = num_processes or _int_env("JAX_NUM_PROCESSES")
@@ -61,8 +60,6 @@ def init_distributed(
         jax.distributed.initialize(
             coordinator_address=addr, num_processes=nproc, process_id=pid
         )
-    elif os.environ.get("TPU_WORKER_HOSTNAMES") and jax.process_count() == 1:
-        jax.distributed.initialize()
     return jax.process_index()
 
 
@@ -75,7 +72,7 @@ def local_block_range(
     nblocks: int, mesh: Mesh, axis: str = "block"
 ) -> Tuple[int, int]:
     """The contiguous ``[lo, hi)`` range of block indices whose shards live
-    on THIS process's chips — the set of shot gathers this host must load.
+    on THIS process's devices — the set of shot gathers this host must load.
 
     Blocks are laid out contiguously over the mesh axis (the
     ``NamedSharding(mesh, P(axis))`` layout used by

@@ -7,14 +7,14 @@ workers, and the block-adjoint accumulation loop (``src/Jets.jl:1034-1057``)
 plus ``BlockArray`` dot/norm reductions (``:834-856``) become cross-worker
 reductions.
 
-TPU-native re-design (SURVEY §2 ledger):
+JAX re-design (SURVEY §2 ledger):
 
 * homogeneous block rows are a **stacked leading axis** of one array — the
   per-block kernel is ``vmap``-ed over it, so each block's work is one slice
-  of a single batched XLA program (MXU/VPU-friendly, zero per-block dispatch);
+  of a single batched XLA program (zero per-block dispatch);
 * the stacked axis is sharded over a ``jax.sharding.Mesh`` axis (``"block"``)
   with ``shard_map``; forward is embarrassingly parallel, the adjoint's
-  block accumulation is a local reduction + ``jax.lax.psum`` over ICI —
+  block accumulation is a local reduction + ``jax.lax.psum`` over the mesh —
   exactly the reference's accumulation loop turned into a collective;
 * solver-side inner products run under ``jit`` on sharded arrays, so XLA
   GSPMD inserts the all-reduces automatically: **the Krylov solvers are
@@ -67,7 +67,7 @@ def block_sharding(mesh: Mesh, axis: str = "block") -> NamedSharding:
 
 
 def shard_blocks(x, mesh: Mesh, axis: str = "block"):
-    """Place a stacked block array with its leading axis sharded over ICI."""
+    """Place a stacked block array with its leading axis sharded over the mesh."""
     return jax.device_put(x, block_sharding(mesh, axis))
 
 
@@ -155,8 +155,8 @@ def _pvary_transpose_psums(mesh: Mesh, axis: str) -> bool:
 def _block_map(state):
     """The per-block mapping transform: ``jax.vmap`` (default — one batched
     XLA program over the local shot stack) or ``lax.map`` (sequential scan
-    over shots — the mode that lets each shot ride the Pallas fused wave
-    steps, whose manual DMAs do not batch under vmap)."""
+    over shots — holds one shot's wavefields and history at a time, which
+    bounds memory where a batched stack would not fit)."""
     if state.get("shot_map", "vmap") == "map":
         return lambda f: (lambda xs: lax.map(f, xs))
     return jax.vmap
@@ -203,7 +203,7 @@ def _stacked_df(dm, m0, state):
 def _stacked_dft(dd, m0, state):
     """Adjoint accumulation: local per-shard reduction, then one ``psum``
     over the block axis — the reference's cross-worker accumulation
-    (src/Jets.jl:1034-1057) as a single ICI collective.
+    (src/Jets.jl:1034-1057) as a single collective.
 
     Two accumulation strategies:
     * ``child_dft`` — per-block adjoint, vmapped then summed (materializes a
@@ -211,8 +211,13 @@ def _stacked_dft(dd, m0, state):
     * ``stack_dft(dd_stack, m0, bstate) -> model`` — whole-stack adjoint over
       the local shard in one shot (e.g. a reduce + single scatter-add);
       preferred for hot operators.
+
+    A ``dft_tail(acc, sstate)`` is applied once to the accumulated sum,
+    after the ``psum``: a linear lift that lets the collective carry a
+    small reduced array (e.g. receiver sums) instead of the model.
     """
     child_dft, stack_dft = state["child_dft"], state["stack_dft"]
+    tail = state["dft_tail"]
     bstate, sstate = state["bstate"], state["sstate"]
     mesh, axis = state["mesh"], state["axis"]
 
@@ -232,14 +237,18 @@ def _stacked_dft(dd, m0, state):
                 dd_loc, bst_loc)
         return jax.tree_util.tree_map(lambda c: jnp.sum(c, axis=0), contribs)
 
+    def lift(acc, sst):
+        return acc if tail is None else tail(acc, sst)
+
     if mesh is None:
-        return local_adjoint(dd, m0, bstate, sstate)
+        return lift(local_adjoint(dd, m0, bstate, sstate), sstate)
 
     def shard_fn(dd_shard, m0_rep, bst_shard, sst):
         res = local_adjoint(dd_shard, m0_rep, bst_shard, sst)
-        if getattr(child_dft, "_includes_psum", False):
-            return res  # the inner vjp's pvary transpose already psum'd
-        return lax.psum(res, axis)
+        # (with an inner vjp, its pvary transpose has already psum'd)
+        if not getattr(child_dft, "_includes_psum", False):
+            res = lax.psum(res, axis)
+        return lift(res, sst)
 
     return jax.shard_map(
         shard_fn,
@@ -259,6 +268,7 @@ def stacked_block_operator(
     f: Optional[Callable] = None,
     dft: Optional[Callable] = None,
     stack_dft: Optional[Callable] = None,
+    dft_tail: Optional[Callable] = None,
     sstate: Optional[Dict[str, Any]] = None,
     mesh: Optional[Mesh] = None,
     axis: str = "block",
@@ -282,14 +292,19 @@ def stacked_block_operator(
         (unstacked) state. ``dft=None`` derives the adjoint via
         ``jax.linear_transpose``. ``stack_dft(dd, m0, state)`` instead
         consumes the whole (local) stack at once.
+    dft_tail: optional linear map ``(acc, sstate) -> model`` applied to the
+        adjoint accumulation after the cross-shard ``psum`` (needs ``dft``
+        or ``stack_dft``); their output is then whatever ``dft_tail`` lifts.
     mesh / axis: optional device mesh; the stacked axis shards over ``axis``
         and the adjoint accumulates with ``psum`` over it.
     shot_map: "vmap" (default — one batched program over the local shots) or
-        "map" (``lax.map`` sequential scan over local shots — lets each shot
-        use kernels that do not batch, e.g. the Pallas fused wave steps).
+        "map" (``lax.map`` sequential scan over local shots — one shot's
+        wavefields and history in memory at a time).
     """
     if shot_map not in ("vmap", "map"):
         raise ValueError(f"shot_map must be 'vmap' or 'map', got {shot_map!r}")
+    if dft_tail is not None and dft is None and stack_dft is None:
+        raise ValueError("dft_tail needs a hand-written dft or stack_dft")
     sstate = dict(sstate or {})
     for k, v in bstate.items():
         if k in sstate:
@@ -336,6 +351,7 @@ def stacked_block_operator(
         "child_df": df,
         "child_dft": dft,
         "stack_dft": stack_dft,
+        "dft_tail": dft_tail,
         "bstate": bstate,
         "sstate": sstate,
         "mesh": mesh,

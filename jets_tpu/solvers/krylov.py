@@ -3,7 +3,7 @@
 The reference has no in-repo solvers; its canonical solve is
 ``lsqr(vec(A), vec(d))`` through IterativeSolvers.jl (docs
 ``docs/src/index.md:238-246``, ``vec`` bridge ``src/Jets.jl:1143-1152``).
-Here solvers are first-class and TPU-native:
+Here solvers are first-class XLA programs:
 
 * each iteration is a traced loop body — two operator applications plus a
   handful of fused BLAS-1 reductions — compiled once by XLA;
@@ -13,7 +13,7 @@ Here solvers are first-class and TPU-native:
   spaces so block/symmetric weighting is automatic;
 * on a sharded block operator the space reductions become ``psum``-backed
   collectives (see ``jets_tpu/parallel``) and the same solver code runs
-  multi-chip: **the solver is oblivious to distribution**;
+  on several devices: **the solver is oblivious to distribution**;
 * solver state is an explicit, checkpointable pytree: every solver takes an
   optional ``state`` to resume from and returns its final state
   (SURVEY §5 — checkpoint/resume of Krylov recurrence vectors).
@@ -32,7 +32,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from ..core.jet import AdjointOperator, LinearOperator
+from ..core.jet import LinearOperator
 from ..utils import tree as tr
 
 __all__ = ["cg", "cgls", "lsqr", "lsmr", "minres", "gmres", "bicgstab", "chebyshev", "estimate_spectral_bounds", "CGState", "CGLSState", "LSQRState", "LSMRState", "MINRESState", "GMRESState", "BiCGStabState", "ChebyshevState"]
@@ -58,70 +58,6 @@ def _sym_ortho(a, bb):
     c = jnp.where(r > 0, a / rsafe, 1.0)
     s = jnp.where(r > 0, bb / rsafe, 0.0)
     return c, s, r
-
-
-def _adjoint_axpy_norm(A, dd, v, s, dom):
-    """``v_hat = A^H dd + s·v`` and ``‖v_hat‖`` — through the operator's
-    fused epilogue hook when it advertises one (static state key
-    ``adjoint_axpy_norm``; see ``ops/pallas_solver`` and the 3-D seismic
-    flagship), else the generic three-step form. The hook exists because
-    XLA's scheduling of the big 3-D while-loop body de-fuses this segment
-    (measured 1.19 ms/iter vs its ~0.6 ms roofline on 256³)."""
-    jet = getattr(A, "jet", None)
-    hook = None
-    if jet is not None and not isinstance(A, AdjointOperator):
-        hook = jet.state.get("adjoint_axpy_norm")
-    if hook is not None:
-        return hook(dd, v, s, jet.state)
-    v_hat = tr.axpy(s, v, A.adjoint_apply(dd))
-    return v_hat, dom.norm(v_hat)
-
-
-def _xw_update(x, w, v_hat, t1, t2, inv_a):
-    """LSQR solution/search update ``x' = x + t1·w, w' = inv_a·v_hat +
-    t2·w`` — on TPU in the HBM regime (big plain f32 arrays) as ONE
-    aliased two-output Pallas pass (measured: the 3-D flagship body drops
-    1.194 → 0.781 ms/iter); otherwise the generic tree-map form (which
-    wins in the VMEM-resident small/2-D regime)."""
-    if (
-        jax.default_backend() == "tpu"
-        and isinstance(x, jax.Array)
-        and isinstance(w, jax.Array)
-        and isinstance(v_hat, jax.Array)
-        and x.shape == w.shape == v_hat.shape
-        and x.dtype == w.dtype == v_hat.dtype
-    ):
-        from ..ops.pallas_solver import fits_xw_pallas, xw_update
-
-        if fits_xw_pallas(x):
-            return xw_update(x, w, v_hat, t1, t2, inv_a)
-    x = tr.xpay(x, t1, w)
-    w = tr.tmap(lambda vh, ww: inv_a * vh + t2 * ww, v_hat, w)
-    return x, w
-
-
-def _lsmr_model_update(v_hat, h, hbar, x, c_hb, c_x, c_h, inv_a):
-    """LSMR's model-space tail (``hbar' = h + c_hb·hbar``,
-    ``x' = x + c_x·hbar'``, ``h' = inv_a·v_hat + c_h·h``) — one aliased
-    three-output Pallas pass on TPU in the HBM regime, generic tree-maps
-    elsewhere. Returns ``(h', hbar', x')``."""
-    if (
-        jax.default_backend() == "tpu"
-        and isinstance(x, jax.Array)
-        and isinstance(h, jax.Array)
-        and isinstance(hbar, jax.Array)
-        and isinstance(v_hat, jax.Array)
-        and x.shape == h.shape == hbar.shape == v_hat.shape
-        and x.dtype == h.dtype == hbar.dtype == v_hat.dtype
-    ):
-        from ..ops.pallas_solver import fits_lsmr_pallas, lsmr_update
-
-        if fits_lsmr_pallas(x):
-            return lsmr_update(v_hat, h, hbar, x, c_hb, c_x, c_h, inv_a)
-    hbar = tr.tmap(lambda h_, hb: h_ + c_hb * hb, h, hbar)
-    x = tr.xpay(x, c_x, hbar)
-    h = tr.tmap(lambda vh, h_: inv_a * vh + c_h * h_, v_hat, h)
-    return h, hbar, x
 
 
 # ---------------------------------------------------------------------------
@@ -166,14 +102,10 @@ def cg(
     (e.g. a diagonal/Jacobi operator); with ``M`` set, ``rho`` tracks
     ``<r, M r>`` and the stopping test still uses the true residual norm.
 
-    Unpreconditioned bodies are HBM-lean: ``rho = <r, r>`` IS the squared
-    residual norm, so the stopping-test reduction folds away, and on TPU
-    in the HBM regime the x/r update (with the rho reduction) and the p
-    update each run as one aliased Pallas pass
-    (``ops/pallas_solver.cg_update``/``p_update`` — measured 1.50 → 1.16
-    ms/iter for CG on the damped 256³ normal operator; the residual gap
-    to CGLS's 0.67 is the normal operator's own extra damp pass — prefer
-    :func:`cgls` for least squares)."""
+    Unpreconditioned bodies are memory-lean: ``rho = <r, r>`` IS the
+    squared residual norm, so the stopping-test reduction folds away
+    (prefer :func:`cgls` for least squares: the normal operator costs an
+    extra pass)."""
     dom = A.dom
     bnorm = dom.norm(b)
     precond = (lambda r: M(r)) if M is not None else (lambda r: r)
@@ -198,11 +130,13 @@ def cg(
         pq = _real(dom.dot(st.p, q))
         alpha = jnp.where(pq > 0, st.rho / jnp.where(pq > 0, pq, 1.0), 0.0)
         if M is None:
-            x, r, rho_new = _cg_xr_update(dom, st.x, st.r, st.p, q, alpha)
+            x = tr.xpay(st.x, alpha, st.p)
+            r = tr.xpay(st.r, -alpha, q)
+            rho_new = _real(dom.dot(r, r))
             beta = jnp.where(
                 st.rho > 0, rho_new / jnp.where(st.rho > 0, st.rho, 1.0), 0.0
             )
-            p = _cg_p_update(r, st.p, beta)
+            p = tr.xpay(r, beta, st.p)
             rnorm = jnp.sqrt(rho_new)
         else:
             x = tr.xpay(st.x, alpha, st.p)
@@ -219,43 +153,6 @@ def cg(
 
     st, hist = lax.while_loop(cond, body, (st, hist0))
     return SolveResult(st.x, st.i, st.rnorm, hist, st)
-
-
-def _cg_xr_update(dom, x, r, p, q, alpha):
-    """``x' = x + α·p, r' = r − α·q, rho' = <r', r'>`` — one aliased Pallas
-    pass on TPU in the HBM regime, generic tree-maps elsewhere."""
-    if (
-        jax.default_backend() == "tpu"
-        and isinstance(x, jax.Array)
-        and isinstance(r, jax.Array)
-        and isinstance(p, jax.Array)
-        and isinstance(q, jax.Array)
-        and x.shape == r.shape == p.shape == q.shape
-        and x.dtype == r.dtype == p.dtype == q.dtype
-    ):
-        from ..ops.pallas_solver import cg_update, fits_cg_pallas
-
-        if fits_cg_pallas(x):
-            return cg_update(x, r, p, q, alpha)
-    x = tr.xpay(x, alpha, p)
-    r = tr.xpay(r, -alpha, q)
-    return x, r, _real(dom.dot(r, r))
-
-
-def _cg_p_update(r, p, beta):
-    """``p' = r + β·p`` — aliased Pallas pass in the HBM regime."""
-    if (
-        jax.default_backend() == "tpu"
-        and isinstance(r, jax.Array)
-        and isinstance(p, jax.Array)
-        and r.shape == p.shape
-        and r.dtype == p.dtype
-    ):
-        from ..ops.pallas_solver import fits_cg_pallas, p_update
-
-        if fits_cg_pallas(r):
-            return p_update(r, p, beta)
-    return tr.xpay(r, beta, p)
 
 
 # ---------------------------------------------------------------------------
@@ -366,14 +263,11 @@ def lsqr(
     costs exactly two collective rounds per iteration. ``phibar`` tracks the
     residual norm without ever forming ``r``.
 
-    HBM-lean recurrence: the model-space Lanczos vector is kept
+    Memory-lean recurrence: the model-space Lanczos vector is kept
     UNNORMALIZED in ``state.v`` (``‖v‖ = state.alpha``; the mathematical
     ``v`` is ``state.v / alpha``) and the ``1/alpha`` factors fold into the
     recurrence scalars, removing the explicit model-vector scale pass.
-    Scalar recurrences are identical to the textbook form. (Measured ~1%
-    on the flagship — XLA already fused most of the scale into adjacent
-    passes — but the form also guarantees the lean pass structure on
-    backends/shapes where that fusion does not fire.)
+    Scalar recurrences are identical to the textbook form.
     """
     dom, rng = A.dom, A.rng
 
@@ -414,11 +308,8 @@ def lsqr(
         )  # data-space scale: cheap
         u_next, beta = _normalize(rng, u_next)
         #   alpha' v_math' = A' u' - beta v_math  →  v' = A'u' - (beta/alpha) v
-        # (fused with the norm through the operator's epilogue hook when
-        # available — one HBM pass instead of three on the 3-D flagship)
-        v_hat, alpha = _adjoint_axpy_norm(
-            A, u_next, st.v, -beta / a_safe, dom
-        )
+        v_hat = tr.axpy(-beta / a_safe, st.v, A.adjoint_apply(u_next))
+        alpha = dom.norm(v_hat)
         # eliminate damping (regularization) via an extra rotation
         c1, _, rhobar1 = _sym_ortho(st.rhobar, damp)
         phibar1 = c1 * st.phibar
@@ -434,7 +325,8 @@ def lsqr(
         # x' = x + t1 w and w' = v_hat/alpha' + t2 w — one two-output pass
         an_safe = jnp.where(alpha > 0, alpha, 1.0)
         inv_a = 1.0 / an_safe
-        x, w = _xw_update(st.x, st.w, v_hat, t1, t2, inv_a)
+        x = tr.xpay(st.x, t1, st.w)
+        w = tr.tmap(lambda vh, ww: inv_a * vh + t2 * ww, v_hat, st.w)
         hist = hist.at[st.i].set(jnp.abs(phibar))
         return LSQRState(x, u_next, v_hat, w, alpha, phibar, rhobar, st.i + 1), hist
 
@@ -485,13 +377,11 @@ def lsmr(
     better stopping behavior for ill-conditioned inversion. The history
     buffer records the ``||A' r||`` estimate ``|zetabar|``.
 
-    HBM-lean recurrence (mirrors lsqr's): ``state.v`` holds the
+    Memory-lean recurrence (mirrors lsqr's): ``state.v`` holds the
     UNNORMALIZED Golub-Kahan vector (``‖v‖ = state.alpha``); the
     ``1/alpha`` factors fold into the update scalars so the explicit
-    model-vector normalization pass disappears, and the h/hbar/x updates
-    run as ONE three-output pass (Pallas-fused on TPU in the HBM regime —
-    measured 1.032 → 0.985 ms/iter on the 256³ flagship; LSMR carries one
-    more model array than LSQR, so its floor is intrinsically higher)."""
+    model-vector normalization pass disappears. LSMR carries one more
+    model array than LSQR, so its per-iteration floor is higher."""
     dom, rng = A.dom, A.rng
 
     damp = jnp.asarray(damp)
@@ -533,10 +423,9 @@ def lsmr(
         a_safe = jnp.where(st.alpha > 0, st.alpha, 1.0)
         u_next = tr.axpy(-st.alpha, st.u, tr.scale(1.0 / a_safe, A(st.v)))
         u_next, beta = _normalize(rng, u_next)
-        #   v' = A'u' - (beta/alpha) v ; alpha' = ‖v'‖ — fused (hook-able)
-        v_next, alpha = _adjoint_axpy_norm(
-            A, u_next, st.v, -beta / a_safe, dom
-        )
+        #   v' = A'u' - (beta/alpha) v ; alpha' = ‖v'‖
+        v_next = tr.axpy(-beta / a_safe, st.v, A.adjoint_apply(u_next))
+        alpha = dom.norm(v_next)
         # rotation eliminating damp
         chat, shat, alphahat = _sym_ortho(st.alphabar, damp)
         # rotation on the bidiagonal
@@ -558,10 +447,10 @@ def lsmr(
         rrb = jnp.where(rho * rhobar > 0, rho * rhobar, 1.0)
         c_x = zeta / rrb
         c_h = -(thetanew / jnp.where(rho > 0, rho, 1.0))
-        an_safe = jnp.where(alpha > 0, alpha, 1.0)
-        h, hbar, x = _lsmr_model_update(
-            v_next, st.h, st.hbar, st.x, c_hb, c_x, c_h, 1.0 / an_safe,
-        )
+        inv_a = 1.0 / jnp.where(alpha > 0, alpha, 1.0)
+        hbar = tr.tmap(lambda h_, hb: h_ + c_hb * hb, st.h, st.hbar)
+        x = tr.xpay(st.x, c_x, hbar)
+        h = tr.tmap(lambda vh, h_: inv_a * vh + c_h * h_, v_next, st.h)
         hist = hist.at[st.i].set(jnp.abs(zetabar))
         return (
             LSMRState(x=x, u=u_next, v=v_next, h=h, hbar=hbar, alpha=alpha,
@@ -800,7 +689,7 @@ def _set_row(stack, k, leaves):
 
 def _dot_all(stack, leaves):
     """<V_k, w> for ALL k at once: one fused batched reduction per leaf
-    (classical Gram-Schmidt, TPU-friendly — no sequential dot chain).
+    (classical Gram-Schmidt — no sequential dot chain).
     Conjugate-linear in the basis (complex-correct projection)."""
     parts = [
         jnp.tensordot(jnp.conj(s), l, axes=(tuple(range(1, s.ndim)),
@@ -846,7 +735,7 @@ def gmres(
     """Restarted GMRES for a SQUARE, nonsymmetric operator (real OR
     complex): minimizes ``||A x - b||`` over each restart-cycle Krylov space.
 
-    TPU design: the Arnoldi basis is a stacked array (leading dim
+    Design: the Arnoldi basis is a stacked array (leading dim
     ``restart+1``) so orthogonalization is classical Gram-Schmidt run TWICE
     ("twice is enough") — two fused batched reductions per step instead of a
     sequential modified-GS dot chain; unfilled basis rows are zero so no

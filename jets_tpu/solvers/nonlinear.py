@@ -4,7 +4,7 @@ XLA programs.
 The reference family solves nonlinear inversion (FWI) with an outer
 linearize-and-Krylov loop (see ``gauss_newton.py``); production COFII
 workflows equally use gradient-based nonlinear optimization on
-``phi(m) = 1/2 ||F(m) - d||^2``. These are the TPU-native versions:
+``phi(m) = 1/2 ||F(m) - d||^2``. These are the JAX versions:
 
 * the WHOLE optimization — line searches included — is one compiled
   ``lax.while_loop``; no host round-trips per iteration;
@@ -12,10 +12,10 @@ workflows equally use gradient-based nonlinear optimization on
   adjoint machinery (``g = J(m)^H r`` via ``linearize`` + adjoint tangent),
   not from autodiff through the forward propagator — same structure the
   reference family uses (adjoint-state method), and it honors hand-written
-  /Pallas adjoints;
+  adjoints;
 * L-BFGS memory is a fixed-size ring buffer of stacked raveled pairs
   (``mem × n`` arrays) — static shapes, ``lax.fori_loop`` two-loop
-  recursion, MXU-friendly;
+  recursion, matmul-friendly;
 * line search is backtracking Armijo (nested ``while_loop``, capped
   halvings), monotone and NaN-safe at exact minima.
 

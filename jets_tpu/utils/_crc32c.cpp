@@ -1,6 +1,6 @@
 // CRC32C (Castagnoli) — native model-content hashing.
 //
-// TPU-native counterpart of the reference's CRC32c.crc32c overload for
+// Native counterpart of the reference's CRC32c.crc32c overload for
 // Float32/64/Complex model arrays ("for hashing models",
 // /root/reference/src/Jets.jl:1284-1286). Compiled to a shared object at
 // first use (see hashing.py) and called through ctypes; uses the SSE4.2

@@ -3,7 +3,7 @@
 // gathers) from a raw store into a bounded ring of buffers while the
 // accelerator computes; the Python side drains the ring and device_puts.
 //
-// The reference repo has no native code; this is the TPU-framework runtime
+// The reference repo has no native code; this is the framework runtime
 // component the build contract asks for (host-side IO kept off the Python
 // thread that drives the device).
 #include <atomic>

@@ -1,7 +1,7 @@
 """Checkpoint / resume — solver-state and model-vector persistence.
 
 The reference has no in-repo checkpointing (SURVEY §5); its only germ is the
-CRC32C content hash. The TPU framework makes checkpointing first-class:
+CRC32C content hash. The framework makes checkpointing first-class:
 Krylov solver states (:class:`~jets_tpu.solvers.krylov.LSQRState` etc.) are
 plain pytrees, so saving/restoring is pytree serialization plus an integrity
 hash. A restored state passes straight back into the solver's ``state=``

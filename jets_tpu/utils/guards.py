@@ -2,7 +2,7 @@
 
 The reference has no race detection or sanitizers (single-threaded pure
 Julia; SURVEY §5) — correctness is guarded mathematically by the gates. In
-a compiled-async TPU setting a NaN born inside a jitted Krylov loop
+a compiled, asynchronous accelerator setting a NaN born inside a jitted Krylov loop
 silently poisons everything downstream, so we add an explicit guard layer:
 
 * :func:`checked` wraps any operator so every apply/adjoint validates its

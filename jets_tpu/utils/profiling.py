@@ -2,7 +2,7 @@
 
 The reference's only observability hooks are ``perfstat`` (author-overridable
 per-operator metric object, ``src/Jets.jl:281``) and the PkgBenchmark
-workflow. TPU-native equivalents:
+workflow. JAX equivalents:
 
 * :func:`instrument` — attach a perfstat function reporting an analytic
   cost model (FLOPs, bytes moved) to any operator; combinators surface it

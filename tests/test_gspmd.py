@@ -83,8 +83,6 @@ def test_grid_sharded_wave_propagator_parity_and_halo():
               rcv_idx=rcv, sponge_width=3, dtype=jnp.float32)
     F0 = wave_propagator(shape, **kw)
     Fs = wave_propagator(shape, wavefield_sharding=ws, **kw)
-    with pytest.raises(ValueError, match="wavefield_sharding"):
-        wave_propagator(shape, fused=True, wavefield_sharding=ws, **kw)
 
     c_host = jnp.full(shape, 1500.0, jnp.float32) + 20.0 * \
         jax.random.normal(jax.random.PRNGKey(9), shape, jnp.float32)
@@ -170,8 +168,6 @@ def test_grid_sharded_vti_propagator_parity_and_halo():
               rcv_idx=rcv, sponge_width=3, dtype=jnp.float32)
     F0 = vti_wave_propagator(shape, **kw)
     Fs = vti_wave_propagator(shape, wavefield_sharding=ws, **kw)
-    with pytest.raises(ValueError, match="wavefield_sharding"):
-        vti_wave_propagator(shape, fused=True, wavefield_sharding=ws, **kw)
 
     full = lambda v: jnp.full(shape, v, jnp.float32)  # noqa: E731
     m0 = (F0.dom.zeros().setblock(0, full(1500.0))
@@ -251,61 +247,6 @@ def test_grid_sharded_tti_propagator_parity():
         sc = float(np.max(np.abs(x)))
         assert sc > 0.0, f"vacuous adjoint block {b}"
         np.testing.assert_allclose(s / sc, x / sc, rtol=0, atol=1e-5)
-
-
-def test_fused_sharded_step_parity_and_collectives():
-    """fused=True UNDER a z-slab grid sharding: the explicit shard_map
-    halo-exchange path (ppermute around the Pallas kernel, interpret mode
-    on CPU) matches the GSPMD XLA-sharded run and the unsharded run, its
-    autodiff gradient matches, and the compiled program carries the
-    ppermute halo collectives."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from jets_tpu.ops.wave import wave_propagator
-    from jets_tpu.parallel.sharded import make_block_mesh
-
-    shape = (16, 8, 128)
-    mesh = make_block_mesh(8, axis="grid")
-    ws = NamedSharding(mesh, P("grid"))
-    src = int(np.ravel_multi_index((8, 4, 64), shape))
-    rcv = jnp.asarray([np.ravel_multi_index((8, 4, x), shape)
-                       for x in range(128)], jnp.int32)
-    kw = dict(nt=14, dt=8e-4, dx=10.0, freq=18.0, src_idx=src,
-              rcv_idx=rcv, sponge_width=3, dtype=jnp.float32)
-    F0 = wave_propagator(shape, **kw)                       # unsharded
-    Fx = wave_propagator(shape, wavefield_sharding=ws, **kw)  # GSPMD XLA
-    Ff = wave_propagator(shape, wavefield_sharding=ws, fused=True, **kw)
-
-    c_host = jnp.full(shape, 1500.0, jnp.float32) + 20.0 * \
-        jax.random.normal(jax.random.PRNGKey(13), shape, jnp.float32)
-    c_sh = jax.device_put(c_host, ws)
-
-    d0 = F0(c_host)
-    assert float(jnp.max(jnp.abs(d0))) > 0.0, "vacuous"
-    dx_ = jax.jit(lambda c: Fx(c))(c_sh)
-    fwd_f = jax.jit(lambda c: Ff(c))
-    df = fwd_f(c_sh)
-    np.testing.assert_allclose(np.asarray(df), np.asarray(d0),
-                               rtol=2e-6, atol=1e-30)
-    np.testing.assert_allclose(np.asarray(df), np.asarray(dx_),
-                               rtol=2e-6, atol=1e-30)
-
-    txt = fwd_f.lower(c_sh).compile().as_text()
-    assert "collective-permute" in txt, \
-        "no ppermute halo collectives in the fused sharded step"
-
-    # autodiff gradient through the custom_jvp (halo-extended XLA rule)
-    gf = jax.jit(jax.grad(lambda c: jnp.sum(Ff(c) ** 2)))(c_sh)
-    g0 = jax.grad(lambda c: jnp.sum(F0(c) ** 2))(c_host)
-    sc = float(jnp.max(jnp.abs(g0)))
-    assert sc > 0.0
-    np.testing.assert_allclose(np.asarray(gf) / sc, np.asarray(g0) / sc,
-                               rtol=0, atol=1e-5)
-
-    # infeasible lane alignment still raises
-    with pytest.raises(ValueError, match="wavefield_sharding"):
-        wave_propagator((16, 8, 16), wavefield_sharding=ws, fused=True,
-                        nt=8, src_idx=0, sponge_width=2)
 
 
 def test_grid_sharded_multishot_vti_block_by_grid():

@@ -124,19 +124,6 @@ def test_deconv_chain_lsqr():
     assert np.all(np.diff(h) <= 1e-12)
 
 
-def test_pallas_laplacian_matches_xla():
-    """The Pallas stencil kernel is bit-exact vs the XLA implementation and
-    passes the adjoint gate (runs in interpret mode on CPU)."""
-    from jets_tpu.ops.stencil import laplacian_operator
-
-    Lx = laplacian_operator((64, 40), jnp.float32, impl="xla")
-    Lp = laplacian_operator((64, 40), jnp.float32, impl="pallas")
-    m = Lx.dom.randn(jax.random.PRNGKey(42))
-    np.testing.assert_allclose(np.asarray(Lp(m)), np.asarray(Lx(m)), atol=1e-6)
-    lhs, rhs = jt.dot_product_test(Lp, m, Lp.rng.randn(jax.random.PRNGKey(43)))
-    np.testing.assert_allclose(float(lhs), float(rhs), rtol=1e-5)
-
-
 def test_transform_operator_gates():
     from jets_tpu.ops.transforms import (
         dct_operator, identity_operator, pad_operator, restriction_operator)

@@ -1,6 +1,8 @@
 """Sharded stacked block operator on the virtual 8-device CPU mesh:
 forward/adjoint parity with the unsharded path, psum adjoint accumulation,
 and a distributed LSQR solve (BASELINE config #4, scaled down)."""
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -101,6 +103,51 @@ def test_seismic_sharded_matches_unsharded():
                                rtol=1e-12)
 
 
+def _all_reduce_sizes(fn, *args):
+    """Element counts of the all-reduces in ``fn``'s lowered program."""
+    txt = jax.jit(fn).lower(*args).as_text()
+    shapes = re.findall(r"stablehlo\.all_reduce.*?\}\) : \(tensor<([^>]*)>",
+                        txt, flags=re.S)
+    return [int(np.prod([int(t) for t in sh.split("x")[:-1]] or [1]))
+            for sh in shapes]
+
+
+@pytest.mark.parametrize("impl", ["fused", "composed"])
+def test_seismic_sharded_adjoint_psums_receiver_sums(impl):
+    """The sharded flagship adjoint all-reduces the (nrecv,) receiver sums,
+    never a model-sized array: the lift into the grid runs after the
+    psum."""
+    mesh = make_block_mesh(4)
+    A = make_seismic_operator((32, 32), 8, 16, jax.random.PRNGKey(0),
+                              mesh=mesh, dtype=jnp.float32, impl=impl)
+    d = shard_blocks(A.rng.randn(jax.random.PRNGKey(1)), mesh)
+    sizes = _all_reduce_sizes(lambda op, y: op.H(y), A, d)
+    assert sizes == [16]
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("grid,nrecv", [((64, 64), 64), ((16, 16, 16), 27)])
+def test_seismic_adjoint_stays_on_stamps(grid, nrecv, sharded):
+    """Receivers sit ≥2 cells apart, so the float32 adjoint is exactly a sum
+    of Laplacian stamps: at every receiver the centre is -2·nd times each
+    arm, bit for bit, on one device and over the mesh. Off-stamp rounding
+    would lie in the null space of A, where LSQR amplifies it."""
+    mesh = make_block_mesh(8) if sharded else None
+    A = make_seismic_operator(grid, 8, nrecv, jax.random.PRNGKey(2),
+                              mesh=mesh, dtype=jnp.float32)
+    d = A.rng.randn(jax.random.PRNGKey(3))
+    if sharded:
+        d = shard_blocks(d, mesh)
+    z = np.asarray(A.H(d)).reshape(-1)
+    rcv = np.asarray(A.jet.state["sstate"]["rcv"])
+    nd = len(grid)
+    strides = np.cumprod((1,) + grid[::-1])[:nd][::-1]
+    assert np.all(z[rcv] != 0)
+    for st in strides:
+        for arm in (rcv - st, rcv + st):
+            np.testing.assert_array_equal(z[rcv], -2.0 * nd * z[arm])
+
+
 def test_distributed_lsqr_converges():
     """Config #4 scaled down: multi-shot LSQR on the 8-device mesh matches the
     single-device solve."""
@@ -112,9 +159,7 @@ def test_distributed_lsqr_converges():
     r0 = lsqr(A0, d_obs, maxiter=50, tol=1e-12)
     r1 = lsqr(A1, shard_blocks(d_obs, mesh), maxiter=50, tol=1e-12)
     bnorm = float(A0.rng.norm(d_obs))
-    # The ill-conditioned operator amplifies reduction-order roundoff, so the
-    # two *solutions* only agree to a few digits; the convergence behavior
-    # must match tightly and the true residuals must agree.
+    # the convergence behavior, the true residuals and the solutions agree
     assert abs(float(r0.resnorm) - float(r1.resnorm)) < 1e-3 * bnorm
     true_res0 = float(A0.rng.norm(A0(r0.x) - d_obs))
     true_res1 = float(A0.rng.norm(A0(r1.x.astype(jnp.float64)) - d_obs))
@@ -122,8 +167,8 @@ def test_distributed_lsqr_converges():
     # each path's phibar estimate must track ITS true residual tightly
     assert abs(true_res0 - float(r0.resnorm)) < 1e-9 * bnorm
     assert abs(true_res1 - float(r1.resnorm)) < 1e-9 * bnorm
-    np.testing.assert_allclose(np.asarray(r0.x), np.asarray(r1.x),
-                               rtol=0.5, atol=1e-2 * float(np.max(np.abs(r0.x))))
+    np.testing.assert_allclose(np.asarray(r0.x), np.asarray(r1.x), rtol=1e-9,
+                               atol=1e-12 * float(np.max(np.abs(r0.x))))
     # converging at all: residual decreased substantially
     assert float(r1.resnorm) < 0.1 * bnorm
 
@@ -199,14 +244,13 @@ def test_distributed_chebyshev_reduction_free_solve():
 
 
 # ---------------------------------------------------------------------- #
-# sequential shot mapping (lax.map) — the fused-kernel-compatible mode
+# sequential shot mapping (lax.map) — one shot's wavefields at a time
 # ---------------------------------------------------------------------- #
 
 
 def test_shot_map_sequential_matches_vmap():
     """shot_map="map" (sequential lax.map over local shots — the mode that
-    lets each shot ride the Pallas fused wave steps on TPU) produces the
-    same operator as the vmapped default: forward, tangent, and the
+    holds one shot's wavefields at a time) produces the same operator as the vmapped default: forward, tangent, and the
     derived psum adjoint, single-device and on the mesh."""
     import numpy as np
 

@@ -1,5 +1,5 @@
 """Gates for the Kaiser-windowed-sinc off-grid sampling operators
-(JetPackWaveFD's Hicks-interpolation equivalent, built as MXU matmuls)."""
+(JetPackWaveFD's Hicks-interpolation equivalent, built as matmuls)."""
 import jax
 import jax.numpy as jnp
 import numpy as np

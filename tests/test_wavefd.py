@@ -801,8 +801,8 @@ def test_3d_iota_mask_and_sponge_factors_bit_exact():
     pin against an EAGER dense-reference loop is rtol-tight instead:
     lax.scan + jax.checkpoint round the carry differently from an eager
     Python loop at the few-ulp level, for old and new step forms alike
-    (the old→new rewrite itself was verified output-bitwise on TPU and CPU
-    before landing)."""
+    (the old→new rewrite itself was verified output-bitwise before
+    landing)."""
     from jets_tpu.ops.wave import (_iota_src_mask, _mul_sponge, _ricker,
                                    _sponge, _sponge_factors)
 
@@ -985,8 +985,7 @@ class TestDtrec:
         Fv = vti_wave_propagator(
             shape3, nt=21, dt=1e-3, dx=10.0, freq=18.0,
             src_idx=int(np.ravel_multi_index((6, 4, 64), shape3)),
-            rcv_idx=rcv3, sponge_width=3, dtrec=2e-3, fused=False,
-            dtype=jnp.float32)
+            rcv_idx=rcv3, sponge_width=3, dtrec=2e-3, dtype=jnp.float32)
         assert Fv.rng.shape[0] == 11
 
     def test_dtrec_validation(self):
@@ -1190,9 +1189,10 @@ class TestAnisotropicStaticQ:
 
         kw3 = dict(nt=4, dt=6e-4, dx=10.0, freq=16.0, src_idx=0,
                    sponge_width=2, dtype=jnp.float32)
-        with pytest.raises(ValueError, match="static Q"):
+        # the retired fused-kernel option fails loudly, never silently
+        with pytest.raises(TypeError, match="fused"):
             vti_wave_propagator((16, 8, 128), q=30.0, fused=True, **kw3)
-        with pytest.raises(ValueError, match="static Q"):
+        with pytest.raises(TypeError, match="fused"):
             tti_wave_propagator((16, 8, 128), q=30.0, fused=True, **kw3)
 
 
